@@ -1,0 +1,23 @@
+"""Kernel dispatch by device, the port of ``repro.kernels.ops``.
+
+CUDA tensors go to the hand-written kernel, CPU tensors to its plain
+PyTorch version (``kernels.ref``); any other device raises. There is no
+fallback: a CUDA tensor the kernel refuses raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    devices = {q.device.type, k.device.type, v.device.type}
+    if devices == {"cuda"}:
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    if devices == {"cpu"}:
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    raise ValueError(f"flash_attention: no kernel for devices "
+                     f"{sorted(devices)}; need all cuda or all cpu")

@@ -1,0 +1,153 @@
+"""Model assembly: blocks -> stack -> LM, ported from ``repro.models.model``.
+
+Parameters are a plain dict::
+
+    {"embed": {"embedding": (V, D)}, "final_norm": {...},
+     "layers": [{"norm1": {...}, "mixer": {wq, wk, wv, wo},
+                 "norm2": {...}, "ffn": {w1, w2[, w3]}}, ...]}
+
+with one entry of ``layers`` per layer: the reference's ``lax.scan`` over
+stacked repeats becomes a Python loop, and its (repeat, ...) leaves become
+per-layer tensors (``repro_torch.checkpoint.load_flat`` splits them). The
+KV cache is a list with one ``{"k", "v"}`` dict of (B, L, K, hd) tensors per
+layer, with no leading repeat axis.
+
+This slice covers ``("attn", "mlp")`` blocks. Modes:
+  prefill      — full sequence, returns last-position logits + cache
+  decode_step  — one token per row against the cache (updated in place)
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers
+from repro_torch.models.config import ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelOptions:
+    """Execution options orthogonal to the architecture.
+
+    ``use_kernels`` routes prefill attention through the hand-written flash
+    attention kernel (``kernels.ops``); unlike the reference it defaults to
+    True, because the kernel is what the port serves with. ``remat`` is kept
+    for parity with the reference's options; this slice has no training
+    step, so it changes nothing here."""
+
+    use_kernels: bool = True
+    remat: bool = True
+
+
+def check_kind(kind) -> None:
+    """Raise unless ``kind`` is a block this port runs."""
+    if tuple(kind) != ("attn", "mlp"):
+        raise NotImplementedError(
+            f"block kind {kind}: this port covers ('attn', 'mlp') blocks")
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def init_block_cache(cfg: ArchConfig, kind, batch: int, cache_len: int,
+                     dtype, device) -> dict:
+    check_kind(kind)
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = (batch, cache_len, K, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def apply_block_full(params, x: torch.Tensor, cfg: ArchConfig, kind,
+                     opts: ModelOptions, want_cache: bool,
+                     cache_len: int = 0):
+    """Full-sequence block. Returns (x, cache_or_None)."""
+    check_kind(kind)
+    h = layers.apply_norm(params["norm1"], x, cfg)
+    out, (k, v) = layers.attention_full(params["mixer"], h, cfg,
+                                        use_flash=opts.use_kernels)
+    cache = None
+    if want_cache:
+        pad = cache_len - x.shape[1]
+        cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+                 "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+    x = x + out
+    h2 = layers.apply_norm(params["norm2"], x, cfg)
+    x = x + layers.apply_mlp(params["ffn"], h2, cfg)
+    return x, cache
+
+
+def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
+                       cfg: ArchConfig, kind, opts: ModelOptions):
+    """One-token block. Returns (x, cache), the cache updated in place."""
+    check_kind(kind)
+    h = layers.apply_norm(params["norm1"], x, cfg)
+    out, ck, cv = layers.attention_decode(params["mixer"], h, cache["k"],
+                                          cache["v"], pos, cfg)
+    x = x + out
+    h2 = layers.apply_norm(params["norm2"], x, cfg)
+    x = x + layers.apply_mlp(params["ffn"], h2, cfg)
+    return x, {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype,
+               opts: ModelOptions, device="cuda") -> list:
+    return [init_block_cache(cfg, kind, batch, cache_len, dtype, device)
+            for kind in cfg.layer_kinds]
+
+
+def insert_cache_slot(cache: list, one: list, slot: int) -> list:
+    """Write a single-request cache (batch dim of size 1) into row ``slot``
+    of a batched cache of the same cache_len, **in place**, and return it.
+    The batch axis is axis 0 of every per-layer tensor (the reference's
+    scan caches carry a leading repeat axis; these do not)."""
+    for big, small in zip(cache, one):
+        for name in big:
+            big[name][slot:slot + 1] = small[name].to(big[name].dtype)
+    return cache
+
+
+def apply_stack_full(params, x: torch.Tensor, cfg: ArchConfig,
+                     opts: ModelOptions, want_cache: bool,
+                     cache_len: int = 0):
+    """All blocks over the full sequence. Returns (x, caches_or_None)."""
+    caches = []
+    for p, kind in zip(params["layers"], cfg.layer_kinds):
+        x, c = apply_block_full(p, x, cfg, kind, opts, want_cache, cache_len)
+        caches.append(c)
+    return x, (caches if want_cache else None)
+
+
+def prefill(params, batch: dict, cfg: ArchConfig, opts: ModelOptions,
+            cache_len: int):
+    """Full-sequence prefill of ``batch["tokens"]`` (B, S).
+    Returns (last-position logits (B, V) in fp32, cache)."""
+    x = layers.embed_tokens(params["embed"], batch["tokens"], cfg)
+    x, cache = apply_stack_full(params, x, cfg, opts, want_cache=True,
+                                cache_len=cache_len)
+    x = layers.apply_norm(params["final_norm"], x, cfg)
+    last = x[:, -1]
+    logits = layers.unembed(params["embed"], last[:, None], cfg)[:, 0]
+    return logits.float(), cache
+
+
+def decode_step(params, token: torch.Tensor, pos, cache: list,
+                cfg: ArchConfig, opts: ModelOptions):
+    """One decode step. token: (B,) integer tensor; pos: an int or a (B,)
+    tensor of per-row positions. Returns (logits (B, V) in fp32, cache),
+    the cache updated in place."""
+    x = layers.embed_tokens(params["embed"], token[:, None], cfg)
+    new_cache = []
+    for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds):
+        x, c = apply_block_decode(p, x, c, pos, cfg, kind, opts)
+        new_cache.append(c)
+    x = layers.apply_norm(params["final_norm"], x, cfg)
+    logits = layers.unembed(params["embed"], x, cfg)[:, 0]
+    return logits.float(), new_cache
