@@ -7,33 +7,48 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
 1. Require a CUDA device of compute capability >= 9.0; print the card's
    name and power limit as ``nvidia-smi`` reports them.
-2. Build the CUDA flash-attention kernel from ``src/repro_torch/kernels/
-   csrc`` with nvcc (cached under ``build/``) and print the compiler report.
-3. Hold the kernel against its plain PyTorch version on seeded inputs: the
-   reference's kernel test grid in fp32 and bf16, the serving path's shape,
-   ragged shapes and a T < S shape (whose blind rows must be mean(v)).
-   Tolerances: fp32 1e-4 (summation order differs on the card), bf16 2e-2
-   (both sides round once to bf16). Time the kernel, the plain version and
-   ``scaled_dot_product_attention`` (a yardstick only; the port never calls
-   it) at the serving path's shape, beside the least time the card could
-   take for the same bytes and operations.
-4. Full-width olmo-1b in fp32, weights from a seeded generator on the card:
-   prefill a 32-token prompt with and without the kernel, compare the
-   logits, and decode 8 greedy tokens from each; the tokens must match.
-5. ``serve("olmo-1b", reduced=False, ...)`` with the continuous-batching
-   engine; the kernel's launch count must be 16 x the prefills it ran, and
-   the H100 fleet is planned again from the measured rates (every plan is
-   validated).
-6. Profile one drain of 8 requests with ``torch.profiler``: wall time
-   with and without tracing, the device's busy time and idle share, and
-   device time by kernel (the flash kernel's per call among them).
-7. Print ``{"kernels": [...]}`` on one line, then the last line
+2. Build the CUDA kernels (flash attention, SSD chunked scan) from
+   ``src/repro_torch/kernels/csrc`` with nvcc, one compiler per source, all
+   started together (cached under ``build/``), and print their reports.
+3. Hold the flash kernel against its plain PyTorch version on seeded inputs:
+   the reference's kernel test grid in fp32 and bf16, the serving path's
+   shape, ragged shapes and a T < S shape (whose blind rows must be
+   mean(v)). Time it, the plain version and ``scaled_dot_product_attention``
+   (a yardstick only; the port never calls it) at the serving path's shape.
+4. Hold the SSD kernel against its plain version: the reference's kernel
+   test grid (g = 2 and the production-like state among it), the serving
+   shape (one 128-chunk, 80 heads), a multi-chunk multi-batch shape that
+   carries the state, a large-dt shape whose upper triangle would overflow
+   if it were not masked, and a ragged shape (against the plain version of
+   the zero-padded inputs). Every output must be finite. Time the kernel
+   and the plain version at the serving shape. No single PyTorch call
+   computes SSD, so it has no library yardstick.
+   Tolerances for both kernels: fp32 1e-4 (summation order differs on the
+   card), bf16 2e-2 (both sides round once to bf16), each absolute plus
+   relative to the plain value.
+5. Full-width olmo-1b and mamba2-2.7b in fp32, weights from a seeded
+   generator on the card: prefill a 32-token prompt with and without the
+   kernels, compare the logits (within 1e-3: fp32 logits of unit scale
+   after 16 resp. 64 layers whose sums run in another order on each path),
+   and decode 8 greedy tokens from each; the tokens must match.
+6. The main paths: ``serve(arch, reduced=False, ...)`` with the continuous-
+   batching engine for olmo-1b, then for mamba2-2.7b. Every kernel's launch
+   count is set to 0 just before each run and read just after; each must
+   equal (the served config's layers of the kernel's kind) x (prefills),
+   so olmo-1b launches only the flash kernel and mamba2-2.7b only the SSD
+   kernel. The H100 fleet is planned again from each run's measured rates
+   (every plan is validated).
+7. Profile one drain of 8 requests on each model with ``torch.profiler``:
+   wall time with and without tracing, the device's busy time and idle
+   share, and device time by kernel (each port kernel's per call).
+8. Print ``{"kernels": [...]}`` on one line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout, so fp32 matrix products are full fp32.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -48,7 +63,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM datasheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # non-tensor fp32; bf16
 FP32_TOL, BF16_TOL = 1e-4, 2e-2
-LOGIT_TOL = 1e-3                # fp32 logits of unit scale after 16 layers
+LOGIT_TOL = 1e-3                # fp32 logits of unit scale after 16/64 layers
 MAIN_SHAPE = (1, 32, 16, 128, 16, 32, True, 0)   # B, S, H, hd, K, T, causal, window
 SHAPES = [
     (2, 128, 4, 64, 2, 128, True, 0),      # tests/test_kernels.py grid
@@ -61,6 +76,22 @@ SHAPES = [
     (1, 37, 8, 128, 2, 90, True, 24),      # ragged, T > S, window
     (1, 64, 4, 64, 4, 48, True, 0),        # T < S: 16 rows see no key
 ]
+# b, s, h, p, g, n, chunk
+SSD_MAIN_SHAPE = (1, 128, 80, 64, 1, 128, 128)   # mamba2-2.7b prefill, padded
+SSD_SHAPES = [
+    (2, 128, 4, 32, 1, 32, 32),            # tests/test_kernels.py grid
+    (1, 256, 2, 64, 1, 64, 64),
+    (1, 64, 4, 16, 2, 16, 16),             # 2 B/C groups
+    (1, 256, 8, 64, 1, 128, 128),          # production-like state size
+    SSD_MAIN_SHAPE,
+    (2, 512, 80, 64, 1, 128, 128),         # 4 chunks x 2 rows: carries state
+    (2, 300, 8, 64, 2, 128, 128),          # ragged: chunks of 128, 128, 44
+]
+SSD_LARGE_DT = (1, 256, 8, 64, 1, 128, 128)      # dt ~ U(0.5, 2)
+# the mixers whose layers launch each kernel once per prefill
+KERNEL_MIXERS = {"flash_attention": ("attn", "attn_window"),
+                 "ssd_scan": ("ssd",)}
+SERVED = {"olmo-1b": "flash_attention", "mamba2-2.7b": "ssd_scan"}
 
 
 def fail(msg: str) -> None:
@@ -83,6 +114,12 @@ def cuda_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def attention_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
     """Least time for one attention call: each input read once and the
     output written once at the HBM rate, against the multiply-adds of the
@@ -98,12 +135,44 @@ def attention_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
     if window > 0:
         vis &= t > q_pos - window
     flops = 4.0 * hd * B * H * int(vis.sum())       # q·k and p·v
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound(nbytes, flops, dtype_name)
 
 
-def check_kernel(torch, fa, ref) -> dict:
+def ssd_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
+    """Least time for one SSD scan: x, B, C, dt and A read once and y
+    written once at the HBM rate, against the multiply-adds the function
+    needs at the fp32 rate outside the tensor cores (the kernel's
+    arithmetic is fp32): per (batch, head) row and chunk of Lc positions,
+    C·Bᵀ and scores·x over the Lc(Lc+1)/2 pairs j <= i, C·state (Lc·n·p)
+    after the first chunk, and the state update (Lc·n·p) before the last."""
+    b, s, h, p, g, n, L = shape
+    esize = 4 if dtype_name == "float32" else 2
+    nbytes = esize * (2 * b * s * h * p + 2 * b * s * g * n) + 4 * (b * s * h
+                                                                   + h)
+    chunks = [min(L, s - c) for c in range(0, s, L)]
+    macs = 0
+    for i, lc in enumerate(chunks):
+        macs += lc * (lc + 1) // 2 * (n + p)
+        macs += lc * n * p * ((i > 0) + (i < len(chunks) - 1))
+    return _bound(nbytes, 2.0 * macs * b * h, "float32")
+
+
+def _compare(name: str, shape, dtype, got, want, tol: float) -> float:
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{name} {shape} {dtype}: got {got.dtype} {tuple(got.shape)}, "
+             f"want {want.dtype} {tuple(want.shape)}")
+    if not bool(got.isfinite().all()):
+        fail(f"{name} {shape} {dtype}: non-finite output")
+    err = (got.float() - want.float()).abs()
+    if bool((err > tol + tol * want.float().abs()).any()):
+        fail(f"{name} {shape} {dtype}: max |err| {err.max().item():.3e} "
+             f"over tolerance {tol}")
+    print(f"{name} {shape} {str(dtype)[6:]}: max |err| "
+          f"{err.max().item():.3e} (tol {tol})")
+    return err.max().item()
+
+
+def check_flash(torch, fa, ref) -> dict:
     """Phase 3. Returns the kernel's record for the final JSON line."""
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -117,20 +186,13 @@ def check_kernel(torch, fa, ref) -> dict:
             want = ref.flash_attention_ref(q, k, v, causal=causal,
                                            window=window)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs()
-            if not torch.isfinite(got).all():
-                fail(f"flash_attention {shape} {dtype}: non-finite output")
-            if (err > tol + tol * want.float().abs()).any():
-                fail(f"flash_attention {shape} {dtype}: max |err| "
-                     f"{err.max().item():.3e} over tolerance {tol}")
+            worst[(shape, str(dtype))] = _compare("flash_attention", shape,
+                                                  dtype, got, want, tol)
             if T < S and dtype == torch.float32:
                 blind = v.mean(dim=1, keepdim=True).expand(-1, S - T, -1, -1)
                 blind_err = (got[:, :S - T] - blind).abs().max().item()
                 if blind_err > FP32_TOL:
                     fail(f"T < S rows are not mean(v): {blind_err:.3e}")
-            worst[(shape, str(dtype))] = err.max().item()
-            print(f"flash_attention {shape} {str(dtype)[6:]}: max |err| "
-                  f"{err.max().item():.3e} (tol {tol})")
 
     # time at the serving path's shape, fp32 (the dtype it serves in)
     B, S, H, hd, K, T, causal, window = MAIN_SHAPE
@@ -159,20 +221,90 @@ def check_kernel(torch, fa, ref) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
-def check_full_model(torch) -> None:
-    """Phase 4: full-width olmo-1b, kernel path against the einsum path."""
+def ssd_inputs(torch, shape, dtype, seed: int, dt_range=(0.001, 0.1)):
+    """x, dt, A, B, C as ``tests/test_kernels.py`` draws them, on the card:
+    x, B, C ~ N(0, 1) in ``dtype``; dt ~ U(dt_range); A ~ -U(0.5, 2)."""
+    b, s, h, p, g, n, _ = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    lo, hi = dt_range
+    dt = torch.rand((b, s, h), generator=gen, device="cuda") * (hi - lo) + lo
+    A = -(torch.rand((h,), generator=gen, device="cuda") * 1.5 + 0.5)
+    B = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dtype)
+    C = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dtype)
+    return x, dt, A, B, C
+
+
+def ssd_plain(torch, ref, x, dt, A, B, C, chunk: int):
+    """The plain version; a ragged s is zero-padded to a chunk multiple, as
+    the model does, and the padding's rows are dropped."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+    if not pad:
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    padf = lambda a: torch.nn.functional.pad(
+        a, (0, 0) * (a.dim() - 2) + (0, pad))
+    return ref.ssd_scan_ref(padf(x), padf(dt), A, padf(B), padf(C),
+                            chunk)[:, :s]
+
+
+def check_ssd(torch, ssd, ref) -> dict:
+    """Phase 4. Returns the kernel's record for the final JSON line."""
+    worst = {}
+    cases = [(shape, (0.001, 0.1)) for shape in SSD_SHAPES]
+    cases.append((SSD_LARGE_DT, (0.5, 2.0)))
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        for i, (shape, dt_range) in enumerate(cases):
+            x, dt, A, B, C = ssd_inputs(torch, shape, dtype, 200 + i,
+                                        dt_range)
+            got = ssd.ssd_scan(x, dt, A, B, C, shape[6])
+            want = ssd_plain(torch, ref, x, dt, A, B, C, shape[6])
+            torch.cuda.synchronize()
+            label = "ssd_scan" + (" dt~U(0.5,2)" if dt_range[0] >= 0.5
+                                  else "")
+            worst[(shape, dt_range, str(dtype))] = _compare(
+                label, shape, dtype, got, want, tol)
+
+    # time at the serving shape, fp32 (the dtype it serves in)
+    x, dt, A, B, C = ssd_inputs(torch, SSD_MAIN_SHAPE, torch.float32, 7)
+    L = SSD_MAIN_SHAPE[6]
+    ms = cuda_ms(torch, lambda: ssd.ssd_scan(x, dt, A, B, C, L))
+    plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_ref(x, dt, A, B, C, L),
+                       iters=50)
+    bound_ms, bound_by = ssd_bound_ms(SSD_MAIN_SHAPE, "float32")
+    print(f"ssd_scan {SSD_MAIN_SHAPE} float32: kernel {ms:.5f} ms, plain "
+          f"{plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); no "
+          "single PyTorch call computes SSD")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:65",
+            "shape": list(SSD_MAIN_SHAPE), "dtype": "float32",
+            "max_abs_err": worst[(SSD_MAIN_SHAPE, (0.001, 0.1),
+                                  "torch.float32")],
+            "max_abs_err_all_shapes": max(worst.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def _params(torch, cfg):
     from repro_torch.checkpoint import init_params
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       torch.float32, device="cuda")
+
+
+def check_full_model(torch, arch: str) -> None:
+    """Phase 5: a full-width model, kernel path against the plain path."""
     from repro_torch.models import model as M
     from repro_torch.models import steps
     from repro_torch.models.config import get_config
 
-    cfg = get_config("olmo-1b")
+    cfg = get_config(arch)
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         torch.float32, device="cuda")
+    params = _params(torch, cfg)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in _leaves(params))
-    print(f"olmo-1b full width: {n_params} parameters (fp32) initialised in "
+    print(f"{arch} full width: {n_params} parameters (fp32) initialised in "
           f"{time.perf_counter() - t0:.2f} s")
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (1, 32)), device="cuda")
@@ -203,35 +335,88 @@ def check_full_model(torch) -> None:
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) / 5 * 1e3
         results[use_kernels] = (first, tokens)
-        print(f"olmo-1b prefill(1x32) use_kernels={use_kernels}: "
+        print(f"{arch} prefill(1x32) use_kernels={use_kernels}: "
               f"{prefill_ms:.3f} ms; decode step (B=1): {decode_ms:.3f} ms; "
               f"greedy tokens {tokens}")
     (lk, tk), (lp, tp) = results[True], results[False]
     if lk.shape != (1, cfg.vocab_size) or not torch.isfinite(lk).all():
-        fail(f"prefill logits: shape {tuple(lk.shape)} or non-finite values")
+        fail(f"{arch} prefill logits: shape {tuple(lk.shape)} or non-finite "
+             "values")
     diff = (lk - lp).abs().max().item()
-    print(f"olmo-1b prefill logits, kernel vs einsum: max |diff| {diff:.3e} "
+    print(f"{arch} prefill logits, kernels vs plain: max |diff| {diff:.3e} "
           f"(tol {LOGIT_TOL})")
     if diff > LOGIT_TOL:
-        fail(f"prefill logits differ by {diff:.3e}")
+        fail(f"{arch} prefill logits differ by {diff:.3e}")
     if tk != tp:
-        fail(f"greedy tokens differ: kernel {tk} vs einsum {tp}")
+        fail(f"{arch} greedy tokens differ: kernels {tk} vs plain {tp}")
     del params, results
     torch.cuda.empty_cache()
 
 
-def profile_serving(torch) -> dict:
-    """Phase 6: one drain of 8 frame requests on full-width olmo-1b, timed
+def expected_launches(cfg, kernel: str, prefills: int) -> int:
+    """Launches of ``kernel`` in ``prefills`` prefills of ``cfg``: one per
+    layer whose mixer the kernel carries."""
+    layers = sum(1 for mixer, _ in cfg.layer_kinds
+                 if mixer in KERNEL_MIXERS[kernel])
+    return layers * prefills
+
+
+def serve_path(torch, arch: str, wrappers: dict) -> dict:
+    """Phase 6 for one model: serve it at full width with every launch
+    count set to 0 just before and read just after, check each count, and
+    plan the H100 fleet again from the measured rates. Returns the counts."""
+    from repro_torch.core.gpu_catalog import (plan_gpu_fleet,
+                                              streams_from_measured)
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.config import get_config
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    report = serve(arch, reduced=False, n_streams=4, fps=2, seconds=3,
+                   engine="continuous")
+    torch.cuda.synchronize()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    wall = time.perf_counter() - t0
+    print(json.dumps(report, sort_keys=True))
+    print(f"serve {arch} wall time {wall:.2f} s; launches {counts}")
+    frames = report["frames_served"]
+    if frames <= 0:
+        fail(f"{arch}: served no frames")
+    if report["serving_report"]["requests"] != frames:
+        fail(f"{arch}: engine request count disagrees with frames served")
+    # every served frame is one prefill, plus the one warmup request that
+    # serve() runs before it resets the stats
+    cfg = get_config(arch)
+    for name, got in counts.items():
+        want = expected_launches(cfg, name, frames + 1)
+        if got != want:
+            fail(f"{arch}: {name} launched {got} times; expected {want} "
+                 f"({want // (frames + 1)} layers x {frames + 1} prefills)")
+    if counts[SERVED[arch]] == 0:
+        fail(f"{arch}: its kernel {SERVED[arch]} never launched")
+    streams = streams_from_measured(arch,
+                                    report["measured_stream_tokens_per_s"])
+    plans = {s: plan_gpu_fleet(streams, strategy=s)      # each validates
+             for s in ("per-stream", "uniform-big", "packed")}
+    if plans["packed"]["hourly_cost"] > plans["per-stream"]["hourly_cost"]:
+        fail(f"{arch}: packed plan costs more than per-stream")
+    print(f"{arch} fleet plans (re-planned, validated): " + json.dumps(
+        {s: (p["hourly_cost"], p["instances"]) for s, p in plans.items()}))
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_serving(torch, arch: str) -> dict:
+    """Phase 7: one drain of 8 frame requests on a full-width model, timed
     without and then with ``torch.profiler``; from the traced run, the
     device's busy time (sum of kernel intervals on its one stream), its idle
     share of the wall time, and device time by kernel."""
-    from repro_torch.checkpoint import init_params
     from repro_torch.models.config import get_config
     from repro_torch.serving import ContinuousBatchingEngine, StreamSimulator
 
-    cfg = get_config("olmo-1b")
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                         torch.float32, device="cuda")
+    cfg = get_config(arch)
+    params = _params(torch, cfg)
     eng = ContinuousBatchingEngine(cfg, params, max_slots=8, cache_len=128)
     sim = StreamSimulator(eng, prompt_len=32, new_tokens=8, seed=1)
     streams = {f"cam-{i}": 2.0 for i in range(4)}
@@ -259,18 +444,20 @@ def profile_serving(torch) -> dict:
             rec[1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    flash = [v for k, v in by_name.items() if "flash_attention_kernel" in k]
-    out = {"requests": 8, "wall_ms": wall_plain * 1e3,
+    per_call = {}
+    for kernel in KERNEL_MIXERS:
+        hits = [v for k, v in by_name.items() if f"{kernel}_kernel" in k]
+        per_call[kernel] = (sum(v[0] for v in hits) / sum(v[1] for v in hits)
+                            if hits else None)
+    out = {"arch": arch, "requests": 8, "wall_ms": wall_plain * 1e3,
            "wall_traced_ms": wall_traced * 1e3,
            "device_busy_ms": busy_ms if by_name else None,
            "device_idle_share": (1 - busy_ms / (wall_traced * 1e3))
            if by_name else None,
-           "flash_device_ms_per_call": (sum(v[0] for v in flash)
-                                        / sum(v[1] for v in flash))
-           if flash else None,
+           "device_ms_per_call": per_call,
            "top_device_kernels_ms": [(k[:80], round(v[0], 4), v[1])
                                      for k, v in top]}
-    print("serving profile (8 requests, full olmo-1b): " + json.dumps(out))
+    print(f"serving profile (8 requests, full {arch}): " + json.dumps(out))
     del eng, params
     torch.cuda.empty_cache()
     return out
@@ -287,6 +474,25 @@ def _leaves(tree):
         yield tree
 
 
+def build_kernels(modules: dict) -> None:
+    """Phase 2: one nvcc per source, all started together."""
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        for fut in [pool.submit(_build.build, name) for name in modules]:
+            fut.result()
+    for name, mod in modules.items():
+        mod.build()                       # load the built library
+        log = _build.library_path(name).with_suffix(".log")
+        print(f"built {_build.library_path(name).name}")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line or \
+                        "Compiling" in line or "smem" in line:
+                    print(f"  nvcc {name}:", line.strip())
+    print(f"built {len(modules)} kernels in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -301,69 +507,39 @@ def main() -> None:
                          text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip(), flush=True)
+    card = smi.stdout.strip()
+    print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ssd
 
     # 2) build
-    t0 = time.perf_counter()
-    fa.build()
-    log = _build.library_path("flash_attention").with_suffix(".log")
-    print(f"built {_build.library_path('flash_attention').name} in "
-          f"{time.perf_counter() - t0:.1f} s")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print("  nvcc:", line.strip())
+    build_kernels({"flash_attention": fa, "ssd_scan": ssd})
+    wrappers = {"flash_attention": fa.flash_attention,
+                "ssd_scan": ssd.ssd_scan}
 
-    # 3) kernel against its plain version, and its times
-    record = check_kernel(torch, fa, ref)
+    # 3-4) each kernel against its plain version, and its times
+    records = {"flash_attention": check_flash(torch, fa, ref),
+               "ssd_scan": check_ssd(torch, ssd, ref)}
 
-    # 4) full-width model, kernel path against the plain path
-    check_full_model(torch)
+    # 5) full-width models, kernel path against the plain path
+    for arch in SERVED:
+        check_full_model(torch, arch)
 
-    # 5) the main path: serve, then plan from the measured rates
-    from repro_torch.core.gpu_catalog import (plan_gpu_fleet,
-                                              streams_from_measured)
-    from repro_torch.launch.serve import serve
-    fa.flash_attention.launches = 0
-    t0 = time.perf_counter()
-    report = serve("olmo-1b", reduced=False, n_streams=4, fps=2, seconds=3,
-                   engine="continuous")
-    torch.cuda.synchronize()
-    launches = fa.flash_attention.launches
-    print(json.dumps(report, sort_keys=True))
-    print(f"serve wall time {time.perf_counter() - t0:.2f} s")
-    frames = report["frames_served"]
-    if frames <= 0:
-        fail("served no frames")
-    if report["serving_report"]["requests"] != frames:
-        fail("engine request count disagrees with frames served")
-    # every served frame is one prefill, plus the one warmup request that
-    # serve() runs before it resets the stats; 16 layers launch per prefill
-    want = 16 * (frames + 1)
-    if launches != want:
-        fail(f"flash_attention launched {launches} times; expected {want} "
-             f"(16 x {frames + 1} prefills)")
-    streams = streams_from_measured("olmo-1b",
-                                    report["measured_stream_tokens_per_s"])
-    plans = {s: plan_gpu_fleet(streams, strategy=s)      # each validates
-             for s in ("per-stream", "uniform-big", "packed")}
-    if plans["packed"]["hourly_cost"] > plans["per-stream"]["hourly_cost"]:
-        fail("packed plan costs more than per-stream")
-    print("fleet plans (re-planned, validated): " + json.dumps(
-        {s: (p["hourly_cost"], p["instances"]) for s, p in plans.items()}))
+    # 6) the main paths: serve, then plan from the measured rates
+    for arch, kernel in SERVED.items():
+        records[kernel]["launches"] = serve_path(torch, arch,
+                                                 wrappers)[kernel]
 
-    record["launches"] = launches
-
-    # 6) where the time goes on the serving path (after the counts are read)
-    prof = profile_serving(torch)
-    record["device_ms"] = prof["flash_device_ms_per_call"]
-    print(json.dumps({"kernels": [record]}))
+    # 7) where the time goes on the serving paths (after the counts are read)
+    for arch, kernel in SERVED.items():
+        prof = profile_serving(torch, arch)
+        records[kernel]["device_ms"] = prof["device_ms_per_call"][kernel]
+    print(card, flush=True)
+    print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,6 +8,10 @@ stacked over the ``n_full`` repeats of the block pattern (leading repeat
 dimension), so layer ``r * p + j`` is ``scan/[j]/...[r]``; leaves under
 ``rem/[i]`` are layer ``n_full * p + i``. ``nonparam_ln`` norms have no
 leaves. The port's layout is described in ``repro_torch.models.model``.
+
+The SSD mixer's ``A_log``, ``D`` and ``dt_bias`` are fp32 in the reference
+whatever the parameters' dtype (``repro.models.ssm.init_ssd``); both
+``load_flat`` and ``init_params`` keep them fp32 (``FP32_LEAVES``).
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import check_kind
+from repro_torch.models.ssm import N_GROUPS
+
+FP32_LEAVES = ("A_log", "D", "dt_bias")
 
 
 def _norm_shapes(cfg: ArchConfig) -> dict:
@@ -33,24 +40,35 @@ def _norm_shapes(cfg: ArchConfig) -> dict:
     raise ValueError(cfg.norm)
 
 
-def param_shapes(cfg: ArchConfig) -> dict:
-    """The port's parameter tree with a shape tuple at every leaf."""
-    D, H, K, hd, Fd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                       cfg.head_dim, cfg.d_ff)
-    embed = {"embedding": (cfg.vocab_size, D)}
-    if not cfg.tie_embeddings:
-        embed["lm_head"] = (D, cfg.vocab_size)
+def _block_shapes(cfg: ArchConfig, kind) -> dict:
+    check_kind(kind)
+    D = cfg.d_model
+    if kind[0] == "ssd":
+        di, H, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
+        conv_ch = di + 2 * N_GROUPS * N
+        return {"norm1": _norm_shapes(cfg),
+                "mixer": {"in_proj": (D, 2 * di + 2 * N_GROUPS * N + H),
+                          "conv_w": (cfg.ssm_conv, conv_ch),
+                          "conv_b": (conv_ch,), "A_log": (H,), "D": (H,),
+                          "dt_bias": (H,), "norm_scale": (di,),
+                          "out_proj": (di, D)}}
+    H, K, hd, Fd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     ffn = {"w1": (D, Fd), "w2": (Fd, D)}
     if cfg.gated:
         ffn["w3"] = (D, Fd)
-    block = {"norm1": _norm_shapes(cfg),
-             "mixer": {"wq": (D, H * hd), "wk": (D, K * hd),
-                       "wv": (D, K * hd), "wo": (H * hd, D)},
-             "norm2": _norm_shapes(cfg), "ffn": ffn}
-    for kind in cfg.layer_kinds:
-        check_kind(kind)
+    return {"norm1": _norm_shapes(cfg),
+            "mixer": {"wq": (D, H * hd), "wk": (D, K * hd),
+                      "wv": (D, K * hd), "wo": (H * hd, D)},
+            "norm2": _norm_shapes(cfg), "ffn": ffn}
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """The port's parameter tree with a shape tuple at every leaf."""
+    embed = {"embedding": (cfg.vocab_size, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        embed["lm_head"] = (cfg.d_model, cfg.vocab_size)
     return {"embed": embed, "final_norm": _norm_shapes(cfg),
-            "layers": [block] * cfg.num_layers}
+            "layers": [_block_shapes(cfg, kind) for kind in cfg.layer_kinds]}
 
 
 def _map_tree(fn, shapes, path=""):
@@ -97,31 +115,61 @@ def load_flat(path_or_dict: Union[str, os.PathLike, Mapping[str, np.ndarray]],
         if tuple(arr.shape) != tuple(shape):
             raise ValueError(f"{key}: shape {arr.shape} != {shape}")
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=device, dtype=dtype)
+            device=device, dtype=_leaf_dtype(path, dtype))
 
     return _map_tree(leaf, param_shapes(cfg))
+
+
+def _init_std(cfg: ArchConfig, name: str) -> float:
+    """The reference's standard deviation of a normal-drawn leaf."""
+    out = 1.0 / math.sqrt(2 * cfg.num_layers)        # output projections
+    if name in ("wq", "wk", "wv", "w1", "w3", "in_proj", "lm_head"):
+        return 1.0 / math.sqrt(cfg.d_model)
+    if name == "wo":
+        return out / math.sqrt(cfg.num_heads * cfg.head_dim)
+    if name == "w2":
+        return out / math.sqrt(cfg.d_ff)
+    if name == "out_proj":
+        return out / math.sqrt(cfg.d_inner)
+    if name == "conv_w":
+        return 1.0 / math.sqrt(cfg.ssm_conv)
+    if name == "embedding":
+        return 0.02
+    raise KeyError(name)
+
+
+def _leaf_dtype(path: str, dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if path.rsplit("/", 1)[-1] in FP32_LEAVES else dtype
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32, device="cuda") -> dict:
     """Random parameters with the reference's distributions
-    (``repro.models.layers.init_attention/init_mlp/init_embed``): N(0, 1)
-    scaled by 1/sqrt(fan_in), the output projections further by
-    1/sqrt(2 * num_layers), embeddings by 0.02; norm scales 1, biases 0.
-    Draws on ``generator``'s device, so the bits differ from JAX's."""
-    D, H, hd, L = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.num_layers
-    s_in = 1.0 / math.sqrt(D)
-    scale = {"wq": s_in, "wk": s_in, "wv": s_in, "w1": s_in, "w3": s_in,
-             "wo": 1.0 / math.sqrt(H * hd) / math.sqrt(2 * L),
-             "w2": 1.0 / math.sqrt(cfg.d_ff) / math.sqrt(2 * L),
-             "embedding": 0.02, "lm_head": 1.0 / math.sqrt(D)}
+    (``repro.models.layers.init_attention/init_mlp/init_embed`` and
+    ``repro.models.ssm.init_ssd``): N(0, 1) scaled by 1/sqrt(fan_in) (the
+    SSD conv by 1/sqrt(ssm_conv)), the output projections further by
+    1/sqrt(2 * num_layers), embeddings by 0.02; norm scales 1, biases 0;
+    SSD ``A_log = log(linspace(1, 16, H))``, ``D = 1`` and ``dt_bias ~
+    U(log 1e-3, log 1e-1)`` (the raw value, as the reference draws it), all
+    three fp32. Draws on ``generator``'s device, so the bits differ from
+    JAX's."""
+    fills = {"scale": 1.0, "bias": 0.0, "norm_scale": 1.0, "conv_b": 0.0,
+             "D": 1.0}
 
     def leaf(path: str, shape: tuple) -> torch.Tensor:
         name = path.rsplit("/", 1)[-1]
-        if name in ("scale", "bias"):
-            fill = 1.0 if name == "scale" else 0.0
-            return torch.full(shape, fill, dtype=dtype, device=device)
+        ldtype = _leaf_dtype(path, dtype)
+        if name in fills:
+            return torch.full(shape, fills[name], dtype=ldtype, device=device)
+        if name == "A_log":
+            return torch.log(torch.linspace(1.0, 16.0, shape[0],
+                                            device=device))
+        if name == "dt_bias":
+            lo, hi = math.log(1e-3), math.log(1e-1)
+            u = torch.rand(shape, generator=generator,
+                           device=generator.device)
+            return (u * (hi - lo) + lo).to(device=device)
         w = torch.randn(shape, generator=generator, device=generator.device)
-        return (w * scale[name]).to(device=device, dtype=dtype)
+        return (w * _init_std(cfg, name)).to(device=device, dtype=ldtype)
 
     return _map_tree(leaf, param_shapes(cfg))

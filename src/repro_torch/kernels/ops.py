@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -21,3 +22,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     raise ValueError(f"flash_attention: no kernel for devices "
                      f"{sorted(devices)}; need all cuda or all cpu")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, chunk: int) -> torch.Tensor:
+    devices = {t.device.type for t in (x, dt, A, B, C)}
+    if devices == {"cuda"}:
+        return _ssd.ssd_scan(x, dt, A, B, C, chunk)
+    if devices == {"cpu"}:
+        return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
+    raise ValueError(f"ssd_scan: no kernel for devices {sorted(devices)}; "
+                     "need all cuda or all cpu")

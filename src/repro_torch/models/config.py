@@ -1,9 +1,11 @@
 """Architecture configuration: one dataclass drives the model.
 
 A copy of ``repro.models.config`` (the port imports nothing from ``repro``).
-A model is a stack of blocks; each block is (mixer, ffn). The port's first
-slice runs ``("attn", "mlp")`` blocks; the other mixers stay in the schema
-so configs keep their reference shape.
+A model is a stack of blocks; each block is (mixer, ffn). The port runs
+``("attn", "mlp")`` and ``("ssd", None)`` blocks; the other mixers stay in
+the schema so configs keep their reference shape. ``param_count`` is the
+reference's formula as it stands (2L + 1 norms whatever the block kinds, no
+``conv_b``/``norm_scale``), so the planner's figures match the reference's.
 """
 from __future__ import annotations
 
@@ -158,5 +160,5 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     import importlib
-    for mod in ("olmo_1b",):
+    for mod in ("olmo_1b", "mamba2_2_7b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

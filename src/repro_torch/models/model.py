@@ -2,17 +2,19 @@
 
 Parameters are a plain dict::
 
-    {"embed": {"embedding": (V, D)}, "final_norm": {...},
+    {"embed": {"embedding": (V, D)[, "lm_head": (D, V)]}, "final_norm": {...},
      "layers": [{"norm1": {...}, "mixer": {wq, wk, wv, wo},
                  "norm2": {...}, "ffn": {w1, w2[, w3]}}, ...]}
 
 with one entry of ``layers`` per layer: the reference's ``lax.scan`` over
 stacked repeats becomes a Python loop, and its (repeat, ...) leaves become
-per-layer tensors (``repro_torch.checkpoint.load_flat`` splits them). The
-KV cache is a list with one ``{"k", "v"}`` dict of (B, L, K, hd) tensors per
-layer, with no leading repeat axis.
+per-layer tensors (``repro_torch.checkpoint.load_flat`` splits them). An
+``("ssd", None)`` layer has ``norm1`` and an SSD ``mixer`` (see
+``models.ssm``) and no ``norm2``/``ffn``. The cache is a list with one dict
+per layer and no leading repeat axis: ``{"k", "v"}`` of (B, L, K, hd) for
+attention, ``{"state", "conv"}`` for SSD.
 
-This slice covers ``("attn", "mlp")`` blocks. Modes:
+This port covers ``("attn", "mlp")`` and ``("ssd", None)`` blocks. Modes:
   prefill      — full sequence, returns last-position logits + cache
   decode_step  — one token per row against the cache (updated in place)
 """
@@ -23,7 +25,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 from repro_torch.models.config import ArchConfig
 
 
@@ -31,9 +33,9 @@ from repro_torch.models.config import ArchConfig
 class ModelOptions:
     """Execution options orthogonal to the architecture.
 
-    ``use_kernels`` routes prefill attention through the hand-written flash
-    attention kernel (``kernels.ops``); unlike the reference it defaults to
-    True, because the kernel is what the port serves with. ``remat`` is kept
+    ``use_kernels`` routes prefill attention and the prefill SSD scan through
+    the hand-written kernels (``kernels.ops``); unlike the reference it
+    defaults to True, because the kernels are what the port serves with. ``remat`` is kept
     for parity with the reference's options; this slice has no training
     step, so it changes nothing here."""
 
@@ -41,11 +43,14 @@ class ModelOptions:
     remat: bool = True
 
 
+KINDS = (("attn", "mlp"), ("ssd", None))
+
+
 def check_kind(kind) -> None:
     """Raise unless ``kind`` is a block this port runs."""
-    if tuple(kind) != ("attn", "mlp"):
+    if tuple(kind) not in KINDS:
         raise NotImplementedError(
-            f"block kind {kind}: this port covers ('attn', 'mlp') blocks")
+            f"block kind {kind}: this port covers {KINDS} blocks")
 
 
 # ---------------------------------------------------------------------------
@@ -55,6 +60,8 @@ def check_kind(kind) -> None:
 def init_block_cache(cfg: ArchConfig, kind, batch: int, cache_len: int,
                      dtype, device) -> dict:
     check_kind(kind)
+    if kind[0] == "ssd":
+        return ssm.ssd_init_cache(cfg, batch, dtype, device)
     K, hd = cfg.num_kv_heads, cfg.head_dim
     shape = (batch, cache_len, K, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -66,15 +73,24 @@ def apply_block_full(params, x: torch.Tensor, cfg: ArchConfig, kind,
                      cache_len: int = 0):
     """Full-sequence block. Returns (x, cache_or_None)."""
     check_kind(kind)
+    mixer, ffn = kind
     h = layers.apply_norm(params["norm1"], x, cfg)
-    out, (k, v) = layers.attention_full(params["mixer"], h, cfg,
-                                        use_flash=opts.use_kernels)
     cache = None
-    if want_cache:
-        pad = cache_len - x.shape[1]
-        cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
-                 "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+    if mixer == "ssd":
+        out = ssm.ssd_forward(params["mixer"], h, cfg,
+                              use_kernel=opts.use_kernels)
+        if want_cache:
+            cache = ssm.ssd_cache_from_prefill(params["mixer"], h, cfg)
+    else:
+        out, (k, v) = layers.attention_full(params["mixer"], h, cfg,
+                                            use_flash=opts.use_kernels)
+        if want_cache:
+            pad = cache_len - x.shape[1]
+            cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
+                     "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
     x = x + out
+    if ffn is None:
+        return x, cache
     h2 = layers.apply_norm(params["norm2"], x, cfg)
     x = x + layers.apply_mlp(params["ffn"], h2, cfg)
     return x, cache
@@ -84,13 +100,20 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
                        cfg: ArchConfig, kind, opts: ModelOptions):
     """One-token block. Returns (x, cache), the cache updated in place."""
     check_kind(kind)
+    mixer, ffn = kind
     h = layers.apply_norm(params["norm1"], x, cfg)
-    out, ck, cv = layers.attention_decode(params["mixer"], h, cache["k"],
-                                          cache["v"], pos, cfg)
+    if mixer == "ssd":
+        out, cache = ssm.ssd_step(params["mixer"], h, cache, cfg)
+    else:
+        out, ck, cv = layers.attention_decode(params["mixer"], h, cache["k"],
+                                              cache["v"], pos, cfg)
+        cache = {"k": ck, "v": cv}
     x = x + out
+    if ffn is None:
+        return x, cache
     h2 = layers.apply_norm(params["norm2"], x, cfg)
     x = x + layers.apply_mlp(params["ffn"], h2, cfg)
-    return x, {"k": ck, "v": cv}
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -107,9 +130,17 @@ def insert_cache_slot(cache: list, one: list, slot: int) -> list:
     """Write a single-request cache (batch dim of size 1) into row ``slot``
     of a batched cache of the same cache_len, **in place**, and return it.
     The batch axis is axis 0 of every per-layer tensor (the reference's
-    scan caches carry a leading repeat axis; these do not)."""
+    scan caches carry a leading repeat axis; these do not). Each row keeps
+    the batched cache's dtype: the SSD state stays fp32. A row of another
+    shape raises rather than broadcast: a prompt shorter than
+    ``ssm_conv - 1`` tokens leaves a short SSD conv history (as in the
+    reference, whose slot update then keeps stale rows)."""
     for big, small in zip(cache, one):
         for name in big:
+            if tuple(small[name].shape) != (1, *big[name].shape[1:]):
+                raise ValueError(
+                    f"cache {name!r}: row of shape {tuple(small[name].shape)}"
+                    f" does not fit a slot of {tuple(big[name].shape[1:])}")
             big[name][slot:slot + 1] = small[name].to(big[name].dtype)
     return cache
 

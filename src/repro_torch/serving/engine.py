@@ -12,9 +12,10 @@ fps enqueues f requests per second.
   earliest-deadline-first using each stream's per-frame budget (1/fps).
 
 The engines run wherever their parameters live (a CUDA device in serving,
-the CPU in tests). The KV cache is updated in place: a prefill writes its
-slot's rows and each decode step writes one position per row, so the pool
-is allocated once and never copied. Stats and their exports
+the CPU in tests). The cache is updated in place: a prefill writes its
+slot's rows, and each decode step writes one KV position per row (attention)
+or each row's state and conv history (SSD), so the pool is allocated once
+and never copied. Stats and their exports
 (``measured_rates``, ``windowed_rates``, ``report``) match the reference's
 exactly, so the reference planner, simulator and observability code consume
 these engines unchanged.

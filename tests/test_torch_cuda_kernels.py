@@ -1,5 +1,5 @@
-"""The CUDA flash-attention kernel against its plain PyTorch version, on the
-GPU. Every test here needs a CUDA device of compute capability >= 9.0
+"""The CUDA kernels (flash attention, SSD chunked scan) against their plain
+PyTorch versions, on the GPU. Every test here needs a CUDA device of compute capability >= 9.0
 (Hopper) and skips without one; this file imports no jax, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
 
@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 # fp32: the kernel and the plain version sum in different orders on the
 # card; bf16: both round the fp32 result once, so they may land one bf16
@@ -104,4 +105,101 @@ def test_reduced_model_prefill_kernel_matches_einsum(cuda):
                            M.ModelOptions(use_kernels=True), 48)
         lp, cp = M.prefill(params, {"tokens": toks}, cfg,
                            M.ModelOptions(use_kernels=False), 48)
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+
+
+# ---------------- SSD chunked scan ----------------
+
+SSD_SHAPES = [
+    # b, s, h, p, g, n, chunk, dt range
+    (2, 128, 4, 32, 1, 32, 32, (0.001, 0.1)),      # test_kernels.py grid
+    (1, 256, 2, 64, 1, 64, 64, (0.001, 0.1)),
+    (1, 64, 4, 16, 2, 16, 16, (0.001, 0.1)),       # 2 B/C groups
+    (1, 256, 8, 64, 1, 128, 128, (0.001, 0.1)),    # production-like state
+    (1, 128, 80, 64, 1, 128, 128, (0.001, 0.1)),   # mamba2-2.7b serving
+    (2, 512, 80, 64, 1, 128, 128, (0.001, 0.1)),   # carries the state
+    (2, 300, 8, 64, 2, 128, 128, (0.001, 0.1)),    # ragged last chunk
+    (1, 256, 8, 64, 1, 128, 128, (0.5, 2.0)),      # large dt
+]
+
+
+def _ssd_inputs(shape, dtype, device, seed=0):
+    b, s, h, p, g, n, _, (lo, hi) = shape
+    rng = np.random.default_rng(seed)
+    mk = lambda a, dt=dtype: torch.as_tensor(a, dtype=torch.float32).to(
+        device=device, dtype=dt)
+    return (mk(rng.standard_normal((b, s, h, p))),
+            mk(rng.uniform(lo, hi, (b, s, h)), torch.float32),
+            mk(-rng.uniform(0.5, 2.0, (h,)), torch.float32),
+            mk(rng.standard_normal((b, s, g, n))),
+            mk(rng.standard_normal((b, s, g, n))))
+
+
+def _ssd_plain(x, dt, A, B, C, chunk):
+    """The plain version; a ragged s is zero-padded to a chunk multiple, as
+    ``ssd_forward`` pads, and the padding's rows are dropped."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+    padf = lambda a: torch.nn.functional.pad(
+        a, (0, 0) * (a.dim() - 2) + (0, pad))
+    return ref.ssd_scan_ref(padf(x), padf(dt), A, padf(B), padf(C),
+                            chunk)[:, :s]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_kernel_matches_plain_version(cuda, shape, dtype):
+    x, dt, A, B, C = _ssd_inputs(shape, dtype, cuda)
+    got = ssd.ssd_scan(x, dt, A, B, C, shape[6])
+    want = _ssd_plain(x, dt, A, B, C, shape[6])
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert bool(got.isfinite().all())
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_ssd_dispatch_launches_kernel_and_counts(cuda):
+    args = _ssd_inputs(SSD_SHAPES[4], torch.float32, cuda)
+    before = ssd.ssd_scan.launches
+    ops.ssd_scan(*args, 128)
+    assert ssd.ssd_scan.launches == before + 1
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, A, B, C = _ssd_inputs(SSD_SHAPES[0], torch.float32, cuda)
+    bad = [
+        (x.half(), dt, A, B.half(), C.half(), 32),            # dtype
+        (x, dt.double(), A, B, C, 32),                        # dt not fp32
+        (x.transpose(1, 2), dt, A, B, C, 32),                 # layout
+        (x[..., :24].contiguous(), dt, A, B, C, 32),          # head dim 24
+        (x, dt, A, B[..., :30].contiguous(), C[..., :30].contiguous(), 32),
+        (x, dt, A[:3], B, C, 32),                             # A's shape
+        (x, dt, A, B, C, 30),                                 # chunk % 4
+        (x, dt, A, B, C, 4096),                               # shared memory
+        (x, dt.cpu(), A, B, C, 32),                           # device
+    ]
+    before = ssd.ssd_scan.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            ssd.ssd_scan(*args)
+    assert ssd.ssd_scan.launches == before
+
+
+def test_reduced_mamba2_prefill_kernel_matches_plain(cuda):
+    from repro_torch.checkpoint import init_params
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    cfg = get_config("mamba2-2.7b", reduced=True)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)), device=cuda)
+    before = ssd.ssd_scan.launches
+    with torch.no_grad():
+        lk, ck = M.prefill(params, {"tokens": toks}, cfg,
+                           M.ModelOptions(use_kernels=True), 48)
+        lp, cp = M.prefill(params, {"tokens": toks}, cfg,
+                           M.ModelOptions(use_kernels=False), 48)
+    assert ssd.ssd_scan.launches == before + cfg.num_layers
     torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
