@@ -7,14 +7,18 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
 1. Require a CUDA device of compute capability >= 9.0; print the card's
    name and power limit as ``nvidia-smi`` reports them.
-2. Build the CUDA kernels (flash attention, SSD chunked scan) from
-   ``src/repro_torch/kernels/csrc`` with nvcc, one compiler per source, all
-   started together (cached under ``build/``), and print their reports.
+2. Build the CUDA kernels (flash attention, SSD chunked scan, RG-LRU scan)
+   from ``src/repro_torch/kernels/csrc`` with nvcc, one compiler per
+   source, all started together (cached under ``build/``), and print their
+   reports.
 3. Hold the flash kernel against its plain PyTorch version on seeded inputs:
-   the reference's kernel test grid in fp32 and bf16, the serving path's
-   shape, ragged shapes and a T < S shape (whose blind rows must be
-   mean(v)). Time it, the plain version and ``scaled_dot_product_attention``
-   (a yardstick only; the port never calls it) at the serving path's shape.
+   the reference's kernel test grid in fp32 and bf16, olmo-1b's and
+   recurrentgemma-9b's prefill shapes (head_dim 128 MHA; head_dim 256 MQA
+   with a window), ragged shapes (one at head_dim 256 where the window
+   bites), T > S shapes with a window and a T < S shape (whose blind rows
+   must be mean(v)). Time it, the plain version and
+   ``scaled_dot_product_attention`` (a yardstick only; the port never calls
+   it) at both serving paths' shapes.
 4. Hold the SSD kernel against its plain version: the reference's kernel
    test grid (g = 2 and the production-like state among it), the serving
    shape (one 128-chunk, 80 heads), a multi-chunk multi-batch shape that
@@ -23,21 +27,27 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    the zero-padded inputs). Every output must be finite. Time the kernel
    and the plain version at the serving shape. No single PyTorch call
    computes SSD, so it has no library yardstick.
-   Tolerances for both kernels: fp32 1e-4 (summation order differs on the
+   Hold the RG-LRU kernel against its plain version: the reference's kernel
+   test grid, the serving shape (1, 32, 4096), a ragged shape and a long
+   (1, 2048, 4096) one with a ~ U(0.99, 0.9999), where h grows to ~100·|b|.
+   Every output must be finite. Time the kernel and the plain version at
+   the serving shape; no single PyTorch call computes the recurrence.
+   Tolerances for every kernel: fp32 1e-4 (summation order differs on the
    card), bf16 2e-2 (both sides round once to bf16), each absolute plus
    relative to the plain value.
-5. Full-width olmo-1b and mamba2-2.7b in fp32, weights from a seeded
-   generator on the card: prefill a 32-token prompt with and without the
-   kernels, compare the logits (within 1e-3: fp32 logits of unit scale
-   after 16 resp. 64 layers whose sums run in another order on each path),
-   and decode 8 greedy tokens from each; the tokens must match.
+5. Full-width olmo-1b, mamba2-2.7b and recurrentgemma-9b in fp32, weights
+   from a seeded generator on the card: prefill a 32-token prompt with and
+   without the kernels, compare the logits (within 1e-3: fp32 logits of
+   unit scale after 16, 64 or 38 layers whose sums run in another order on
+   each path), and decode 8 greedy tokens from each; the tokens must match.
 6. The main paths: ``serve(arch, reduced=False, ...)`` with the continuous-
-   batching engine for olmo-1b, then for mamba2-2.7b. Every kernel's launch
-   count is set to 0 just before each run and read just after; each must
-   equal (the served config's layers of the kernel's kind) x (prefills),
-   so olmo-1b launches only the flash kernel and mamba2-2.7b only the SSD
-   kernel. The H100 fleet is planned again from each run's measured rates
-   (every plan is validated).
+   batching engine for each model in turn. Every kernel's launch count is
+   set to 0 just before each run and read just after; each must equal (the
+   served config's layers of the kernel's kind) x (prefills), so olmo-1b
+   launches only the flash kernel, mamba2-2.7b only the SSD kernel, and
+   recurrentgemma-9b the RG-LRU kernel in its 26 recurrent layers and the
+   flash kernel in its 12 local-attention layers. The H100 fleet is planned
+   again from each run's measured rates (every plan is validated).
 7. Profile one drain of 8 requests on each model with ``torch.profiler``:
    wall time with and without tracing, the device's busy time and idle
    share, and device time by kernel (each port kernel's per call).
@@ -49,6 +59,7 @@ TF32 is off throughout, so fp32 matrix products are full fp32.
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import os
 import subprocess
@@ -63,8 +74,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM datasheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # non-tensor fp32; bf16
 FP32_TOL, BF16_TOL = 1e-4, 2e-2
-LOGIT_TOL = 1e-3                # fp32 logits of unit scale after 16/64 layers
+LOGIT_TOL = 1e-3                # fp32 logits of unit scale after 16-64 layers
 MAIN_SHAPE = (1, 32, 16, 128, 16, 32, True, 0)   # B, S, H, hd, K, T, causal, window
+RG_FLASH_SHAPE = (1, 32, 16, 256, 1, 32, True, 2048)  # recurrentgemma-9b prefill
 SHAPES = [
     (2, 128, 4, 64, 2, 128, True, 0),      # tests/test_kernels.py grid
     (1, 256, 4, 64, 1, 256, True, 64),
@@ -75,6 +87,9 @@ SHAPES = [
     (2, 100, 4, 64, 2, 100, True, 0),      # ragged
     (1, 37, 8, 128, 2, 90, True, 24),      # ragged, T > S, window
     (1, 64, 4, 64, 4, 48, True, 0),        # T < S: 16 rows see no key
+    RG_FLASH_SHAPE,                        # hd 256, MQA, window 2048
+    (1, 300, 16, 256, 1, 300, True, 128),  # hd 256, ragged, the window bites
+    (2, 40, 4, 256, 1, 100, True, 48),     # hd 256, T > S with a window
 ]
 # b, s, h, p, g, n, chunk
 SSD_MAIN_SHAPE = (1, 128, 80, 64, 1, 128, 128)   # mamba2-2.7b prefill, padded
@@ -88,10 +103,23 @@ SSD_SHAPES = [
     (2, 300, 8, 64, 2, 128, 128),          # ragged: chunks of 128, 128, 44
 ]
 SSD_LARGE_DT = (1, 256, 8, 64, 1, 128, 128)      # dt ~ U(0.5, 2)
+# B, S, W, a range
+RGLRU_MAIN_SHAPE = (1, 32, 4096, (0.7, 0.999))   # recurrentgemma-9b prefill
+RGLRU_SHAPES = [
+    (2, 128, 512, (0.7, 0.999)),           # tests/test_kernels.py grid
+    (1, 256, 256, (0.7, 0.999)),
+    (3, 64, 128, (0.7, 0.999)),
+    (1, 512, 1024, (0.7, 0.999)),
+    RGLRU_MAIN_SHAPE,
+    (2, 37, 300, (0.7, 0.999)),            # ragged
+    (1, 2048, 4096, (0.99, 0.9999)),       # long, slow decay: h ~ 100·|b|
+]
 # the mixers whose layers launch each kernel once per prefill
 KERNEL_MIXERS = {"flash_attention": ("attn", "attn_window"),
-                 "ssd_scan": ("ssd",)}
-SERVED = {"olmo-1b": "flash_attention", "mamba2-2.7b": "ssd_scan"}
+                 "ssd_scan": ("ssd",), "rglru_scan": ("rglru",)}
+# each served model and the kernels its main path runs
+SERVED = {"olmo-1b": ["flash_attention"], "mamba2-2.7b": ["ssd_scan"],
+          "recurrentgemma-9b": ["rglru_scan", "flash_attention"]}
 
 
 def fail(msg: str) -> None:
@@ -194,30 +222,46 @@ def check_flash(torch, fa, ref) -> dict:
                 if blind_err > FP32_TOL:
                     fail(f"T < S rows are not mean(v): {blind_err:.3e}")
 
-    # time at the serving path's shape, fp32 (the dtype it serves in)
-    B, S, H, hd, K, T, causal, window = MAIN_SHAPE
+    # time at each serving path's shape, fp32 (the dtype it serves in)
+    times = {shape: time_flash(torch, fa, ref, shape)
+             for shape in (MAIN_SHAPE, RG_FLASH_SHAPE)}
+    rec = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:70",
+           "shape": list(MAIN_SHAPE[:6]), "dtype": "float32",
+           "max_abs_err": worst[(MAIN_SHAPE, "torch.float32")],
+           "max_abs_err_all_shapes": max(worst.values()),
+           **times[MAIN_SHAPE]}
+    rec["hd256"] = {"shape": list(RG_FLASH_SHAPE[:6]),
+                    "window": RG_FLASH_SHAPE[7], "dtype": "float32",
+                    "max_abs_err": worst[(RG_FLASH_SHAPE, "torch.float32")],
+                    **times[RG_FLASH_SHAPE]}
+    return rec
+
+
+def time_flash(torch, fa, ref, shape) -> dict:
+    """The kernel, its plain version and ``scaled_dot_product_attention`` (a
+    yardstick only, with k and v expanded to the query heads) at one causal
+    fp32 shape, by CUDA events."""
+    B, S, H, hd, K, T, causal, window = shape
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v = (torch.randn(s, generator=gen, device="cuda")
                for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
-    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True))
-    plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v,
-                                                              causal=True))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    run = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
+    ms = cuda_ms(torch, run)
+    plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, causal=True, window=window))
+    qt = q.transpose(1, 2)
+    kt, vt = (x.transpose(1, 2).expand(B, H, T, hd) for x in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
     lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
-               - fa.flash_attention(q, k, v, causal=True)).abs().max().item()
-    bound_ms, bound_by = attention_bound_ms(MAIN_SHAPE, "float32")
-    print(f"flash_attention {MAIN_SHAPE} float32: kernel {ms:.5f} ms, plain "
+               - run()).abs().max().item()      # the window is >= T here
+    bound_ms, bound_by = attention_bound_ms(shape, "float32")
+    print(f"flash_attention {shape} float32: kernel {ms:.5f} ms, plain "
           f"{plain_ms:.5f} ms, sdpa {library_ms:.5f} ms (|diff| {lib_err:.2e}),"
           f" bound {bound_ms:.6f} ms ({bound_by})")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:70",
-            "shape": list(MAIN_SHAPE[:6]), "dtype": "float32",
-            "max_abs_err": worst[(MAIN_SHAPE, "torch.float32")],
-            "max_abs_err_all_shapes": max(worst.values()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
@@ -287,8 +331,56 @@ def check_ssd(torch, ssd, ref) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+def rglru_bound_ms(shape) -> tuple[float, str]:
+    """Least time for one RG-LRU scan: a and b read once and h written once
+    (fp32) at the HBM rate, against one multiply and one add per element at
+    the fp32 rate outside the tensor cores."""
+    B, S, W = shape[:3]
+    return _bound(12.0 * B * S * W, 2.0 * B * S * W, "float32")
+
+
+def rglru_inputs(torch, shape, seed: int):
+    """a ~ U(a range) and b ~ N(0, 1), fp32 on the card, as
+    ``tests/test_kernels.py`` draws them."""
+    B, S, W, (lo, hi) = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand((B, S, W), generator=gen, device="cuda") * (hi - lo) + lo
+    b = torch.randn((B, S, W), generator=gen, device="cuda")
+    return a, b
+
+
+def check_rglru(torch, rg, ref) -> dict:
+    """Phase 4, RG-LRU. Returns the kernel's record for the final JSON
+    line."""
+    worst = {}
+    for i, shape in enumerate(RGLRU_SHAPES):
+        a, b = rglru_inputs(torch, shape, 300 + i)
+        got = rg.rglru_scan(a, b)
+        want = ref.rglru_scan_ref(a, b)
+        torch.cuda.synchronize()
+        worst[shape] = _compare("rglru_scan", shape, torch.float32, got,
+                                want, FP32_TOL)
+    a, b = rglru_inputs(torch, RGLRU_MAIN_SHAPE, 7)
+    ms = cuda_ms(torch, lambda: rg.rglru_scan(a, b))
+    plain_ms = cuda_ms(torch, lambda: ref.rglru_scan_ref(a, b), iters=50)
+    bound_ms, bound_by = rglru_bound_ms(RGLRU_MAIN_SHAPE)
+    print(f"rglru_scan {RGLRU_MAIN_SHAPE[:3]} float32: kernel {ms:.5f} ms, "
+          f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
+          "no single PyTorch call computes the recurrence")
+    return {"name": "rglru_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "src/repro/kernels/rglru_scan.py:40",
+            "shape": list(RGLRU_MAIN_SHAPE[:3]), "dtype": "float32",
+            "max_abs_err": worst[RGLRU_MAIN_SHAPE],
+            "max_abs_err_all_shapes": max(worst.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def _params(torch, cfg):
     from repro_torch.checkpoint import init_params
+    gc.collect()                         # the last model's weights, if any
+    torch.cuda.empty_cache()
     return init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                        torch.float32, device="cuda")
 
@@ -349,7 +441,8 @@ def check_full_model(torch, arch: str) -> None:
         fail(f"{arch} prefill logits differ by {diff:.3e}")
     if tk != tp:
         fail(f"{arch} greedy tokens differ: kernels {tk} vs plain {tp}")
-    del params, results
+    del params, results, cache, logits, first
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -393,8 +486,9 @@ def serve_path(torch, arch: str, wrappers: dict) -> dict:
         if got != want:
             fail(f"{arch}: {name} launched {got} times; expected {want} "
                  f"({want // (frames + 1)} layers x {frames + 1} prefills)")
-    if counts[SERVED[arch]] == 0:
-        fail(f"{arch}: its kernel {SERVED[arch]} never launched")
+    for name in SERVED[arch]:
+        if counts[name] == 0:
+            fail(f"{arch}: its kernel {name} never launched")
     streams = streams_from_measured(arch,
                                     report["measured_stream_tokens_per_s"])
     plans = {s: plan_gpu_fleet(streams, strategy=s)      # each validates
@@ -458,7 +552,8 @@ def profile_serving(torch, arch: str) -> dict:
            "top_device_kernels_ms": [(k[:80], round(v[0], 4), v[1])
                                      for k, v in top]}
     print(f"serving profile (8 requests, full {arch}): " + json.dumps(out))
-    del eng, params
+    del eng, sim, params
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -514,30 +609,41 @@ def main() -> None:
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import ssd_scan as ssd
 
     # 2) build
-    build_kernels({"flash_attention": fa, "ssd_scan": ssd})
+    build_kernels({"flash_attention": fa, "ssd_scan": ssd, "rglru_scan": rg})
     wrappers = {"flash_attention": fa.flash_attention,
-                "ssd_scan": ssd.ssd_scan}
+                "ssd_scan": ssd.ssd_scan, "rglru_scan": rg.rglru_scan}
 
     # 3-4) each kernel against its plain version, and its times
     records = {"flash_attention": check_flash(torch, fa, ref),
-               "ssd_scan": check_ssd(torch, ssd, ref)}
+               "ssd_scan": check_ssd(torch, ssd, ref),
+               "rglru_scan": check_rglru(torch, rg, ref)}
 
     # 5) full-width models, kernel path against the plain path
     for arch in SERVED:
         check_full_model(torch, arch)
 
-    # 6) the main paths: serve, then plan from the measured rates
-    for arch, kernel in SERVED.items():
-        records[kernel]["launches"] = serve_path(torch, arch,
-                                                 wrappers)[kernel]
+    # 6) the main paths: serve, then plan from the measured rates; a kernel
+    # on two paths records the sum of its launches and each path's count
+    for rec in records.values():
+        rec["launches"], rec["launches_by_path"] = 0, {}
+    for arch in SERVED:
+        counts = serve_path(torch, arch, wrappers)
+        for name, n in counts.items():
+            records[name]["launches"] += n
+            records[name]["launches_by_path"][arch] = n
 
-    # 7) where the time goes on the serving paths (after the counts are read)
-    for arch, kernel in SERVED.items():
+    # 7) where the time goes on the serving paths (after the counts are
+    # read); a kernel's device_ms is its time a call on its first path
+    for arch, kernels in SERVED.items():
         prof = profile_serving(torch, arch)
-        records[kernel]["device_ms"] = prof["device_ms_per_call"][kernel]
+        for name in kernels:
+            per_call = prof["device_ms_per_call"][name]
+            records[name].setdefault("device_ms", per_call)
+            records[name].setdefault("device_ms_by_path", {})[arch] = per_call
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

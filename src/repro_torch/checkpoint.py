@@ -9,8 +9,9 @@ dimension), so layer ``r * p + j`` is ``scan/[j]/...[r]``; leaves under
 ``rem/[i]`` are layer ``n_full * p + i``. ``nonparam_ln`` norms have no
 leaves. The port's layout is described in ``repro_torch.models.model``.
 
-The SSD mixer's ``A_log``, ``D`` and ``dt_bias`` are fp32 in the reference
-whatever the parameters' dtype (``repro.models.ssm.init_ssd``); both
+The SSD mixer's ``A_log``, ``D`` and ``dt_bias`` and the RG-LRU mixer's
+``lam`` are fp32 in the reference whatever the parameters' dtype
+(``repro.models.ssm.init_ssd``, ``repro.models.rglru.init_rglru``); both
 ``load_flat`` and ``init_params`` keep them fp32 (``FP32_LEAVES``).
 """
 from __future__ import annotations
@@ -24,9 +25,10 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import check_kind
+from repro_torch.models.rglru import RG_C
 from repro_torch.models.ssm import N_GROUPS
 
-FP32_LEAVES = ("A_log", "D", "dt_bias")
+FP32_LEAVES = ("A_log", "D", "dt_bias", "lam")
 
 
 def _norm_shapes(cfg: ArchConfig) -> dict:
@@ -52,13 +54,19 @@ def _block_shapes(cfg: ArchConfig, kind) -> dict:
                           "conv_b": (conv_ch,), "A_log": (H,), "D": (H,),
                           "dt_bias": (H,), "norm_scale": (di,),
                           "out_proj": (di, D)}}
-    H, K, hd, Fd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
-    ffn = {"w1": (D, Fd), "w2": (Fd, D)}
+    if kind[0] == "rglru":
+        W = cfg.rnn_width
+        mixer = {"wx": (D, W), "wgate": (D, W), "conv_w": (cfg.rnn_conv, W),
+                 "conv_b": (W,), "wr": (W, W), "wi": (W, W), "lam": (W,),
+                 "wo": (W, D)}
+    else:                                       # attn, attn_window
+        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        mixer = {"wq": (D, H * hd), "wk": (D, K * hd), "wv": (D, K * hd),
+                 "wo": (H * hd, D)}
+    ffn = {"w1": (D, cfg.d_ff), "w2": (cfg.d_ff, D)}
     if cfg.gated:
-        ffn["w3"] = (D, Fd)
-    return {"norm1": _norm_shapes(cfg),
-            "mixer": {"wq": (D, H * hd), "wk": (D, K * hd),
-                      "wv": (D, K * hd), "wo": (H * hd, D)},
+        ffn["w3"] = (D, cfg.d_ff)
+    return {"norm1": _norm_shapes(cfg), "mixer": mixer,
             "norm2": _norm_shapes(cfg), "ffn": ffn}
 
 
@@ -120,22 +128,37 @@ def load_flat(path_or_dict: Union[str, os.PathLike, Mapping[str, np.ndarray]],
     return _map_tree(leaf, param_shapes(cfg))
 
 
-def _init_std(cfg: ArchConfig, name: str) -> float:
-    """The reference's standard deviation of a normal-drawn leaf."""
+def _init_std(cfg: ArchConfig, path: str) -> float:
+    """The reference's standard deviation of the normal-drawn leaf at port
+    path ``path``. A mixer's ``wo`` and ``conv_w`` take their own mixer's
+    std (an RG-LRU ``wo`` is 1/√W/√(2L), an attention ``wo`` 1/√(H·hd)/√(2L);
+    an RG-LRU ``conv_w`` 1/√rnn_conv, an SSD one 1/√ssm_conv), so the layer's
+    block kind is read from the path."""
+    parts = path.split("/")
+    name = parts[-1]
+    mixer = (cfg.layer_kinds[int(parts[1])][0]
+             if parts[0] == "layers" and parts[2] == "mixer" else None)
     out = 1.0 / math.sqrt(2 * cfg.num_layers)        # output projections
-    if name in ("wq", "wk", "wv", "w1", "w3", "in_proj", "lm_head"):
+    if name in ("wq", "wk", "wv", "w1", "w3", "in_proj", "lm_head", "wx",
+                "wgate"):
         return 1.0 / math.sqrt(cfg.d_model)
+    if name in ("wr", "wi"):
+        return 1.0 / math.sqrt(cfg.rnn_width)
+    if name == "wo" and mixer == "rglru":
+        return out / math.sqrt(cfg.rnn_width)
     if name == "wo":
         return out / math.sqrt(cfg.num_heads * cfg.head_dim)
     if name == "w2":
         return out / math.sqrt(cfg.d_ff)
     if name == "out_proj":
         return out / math.sqrt(cfg.d_inner)
+    if name == "conv_w" and mixer == "rglru":
+        return 1.0 / math.sqrt(cfg.rnn_conv)
     if name == "conv_w":
         return 1.0 / math.sqrt(cfg.ssm_conv)
     if name == "embedding":
         return 0.02
-    raise KeyError(name)
+    raise KeyError(path)
 
 
 def _leaf_dtype(path: str, dtype: torch.dtype) -> torch.dtype:
@@ -146,13 +169,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32, device="cuda") -> dict:
     """Random parameters with the reference's distributions
     (``repro.models.layers.init_attention/init_mlp/init_embed`` and
-    ``repro.models.ssm.init_ssd``): N(0, 1) scaled by 1/sqrt(fan_in) (the
-    SSD conv by 1/sqrt(ssm_conv)), the output projections further by
-    1/sqrt(2 * num_layers), embeddings by 0.02; norm scales 1, biases 0;
-    SSD ``A_log = log(linspace(1, 16, H))``, ``D = 1`` and ``dt_bias ~
-    U(log 1e-3, log 1e-1)`` (the raw value, as the reference draws it), all
-    three fp32. Draws on ``generator``'s device, so the bits differ from
-    JAX's."""
+    ``repro.models.ssm.init_ssd``, ``repro.models.rglru.init_rglru``):
+    N(0, 1) scaled by 1/sqrt(fan_in) (the convs by 1/sqrt(kernel width)),
+    the output projections further by 1/sqrt(2 * num_layers), embeddings by
+    0.02; norm scales 1, biases 0; SSD ``A_log = log(linspace(1, 16, H))``,
+    ``D = 1`` and ``dt_bias ~ U(log 1e-3, log 1e-1)`` (the raw value, as the
+    reference draws it); RG-LRU ``lam = log(expm1(-log(u) / (2 c)))`` with
+    u ~ U(0.9², 0.999²), so that a = e^{-c softplus(lam)} lies in
+    [0.9, 0.999] at r = 1. The SSD scalars and ``lam`` are fp32. Draws on
+    ``generator``'s device, so the bits differ from JAX's."""
     fills = {"scale": 1.0, "bias": 0.0, "norm_scale": 1.0, "conv_b": 0.0,
              "D": 1.0}
 
@@ -169,7 +194,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
             u = torch.rand(shape, generator=generator,
                            device=generator.device)
             return (u * (hi - lo) + lo).to(device=device)
+        if name == "lam":
+            lo, hi = 0.9 ** 2, 0.999 ** 2
+            u = torch.rand(shape, generator=generator,
+                           device=generator.device) * (hi - lo) + lo
+            return torch.log(torch.expm1(-torch.log(u) / (2 * RG_C))).to(
+                device=device)
         w = torch.randn(shape, generator=generator, device=generator.device)
-        return (w * _init_std(cfg, name)).to(device=device, dtype=ldtype)
+        return (w * _init_std(cfg, path)).to(device=device, dtype=ldtype)
 
     return _map_tree(leaf, param_shapes(cfg))

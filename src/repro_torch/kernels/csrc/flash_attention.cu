@@ -25,8 +25,12 @@
 //     of bank conflicts);
 //   - lane j scores key j of the tile; the row's max and sum are warp
 //     shuffles; each lane owns hd/32 output columns of acc in registers.
-// Static shared memory stays under 48 KB (37 KB at hd = 128). wgmma, TMA
-// and skipping fully masked causal tiles are later work.
+// The three tiles live in dynamic shared memory for every hd (one code path):
+// 4·(8·hd + 32·(hd+1) + 32·hd) bytes, 36,992 at hd = 128 and 73,856 at
+// hd = 256, past the 48 KB a block may hold statically, so each launch first
+// opts in with cudaFuncSetAttribute. At hd = 256 each lane holds 8 output
+// accumulators. wgmma, TMA and skipping fully masked causal tiles are later
+// work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -37,6 +41,13 @@ constexpr float kNegInf = -1e30f;
 constexpr int kWarps = 8;     // query rows per block
 constexpr int kBlockK = 32;   // keys per shared-memory tile: one per lane
 constexpr unsigned kFull = 0xffffffffu;
+constexpr long long kMaxSmem = 232448;  // 227 KB: the most one block may use
+
+// floats of dynamic shared memory: q (kWarps x HD), k (kBlockK x (HD + 1),
+// padded against bank conflicts) and v (kBlockK x HD)
+constexpr int smem_floats(int hd) {
+  return kWarps * hd + kBlockK * (hd + 1) + kBlockK * hd;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -65,9 +76,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int Tk, int H, int K, int causal, int window,
                        float scale) {
   constexpr int kPer = HD / 32;  // output columns owned by each lane
-  __shared__ float q_s[kWarps][HD];
-  __shared__ float k_s[kBlockK][HD + 1];
-  __shared__ float v_s[kBlockK][HD];
+  extern __shared__ float smem[];
+  float(*q_s)[HD] = reinterpret_cast<float(*)[HD]>(smem);
+  float(*k_s)[HD + 1] = reinterpret_cast<float(*)[HD + 1]>(smem + kWarps * HD);
+  float(*v_s)[HD] = reinterpret_cast<float(*)[HD]>(
+      smem + kWarps * HD + kBlockK * (HD + 1));
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -150,7 +163,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            cudaStream_t stream) {
   const dim3 grid(B * H, (S + kWarps - 1) / kWarps);
   const float scale = 1.0f / sqrtf((float)HD);
-  flash_attention_kernel<HD, T><<<grid, kWarps * 32, 0, stream>>>(
+  const size_t smem = (size_t)smem_floats(HD) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<HD, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_kernel<HD, T><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, Tk, H, K, causal,
       window, scale);
@@ -168,6 +186,8 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B,
       return launch<64, T>(q, k, v, o, B, S, Tk, H, K, causal, window, stream);
     case 128:
       return launch<128, T>(q, k, v, o, B, S, Tk, H, K, causal, window, stream);
+    case 256:
+      return launch<256, T>(q, k, v, o, B, S, Tk, H, K, causal, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -183,7 +203,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int Tk, int H, int K, int hd, int causal,
                                    int window, int is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || Tk <= 0 || K <= 0 || H % K != 0 ||
-      (long long)B * H > 2147483647LL || (S + kWarps - 1) / kWarps > 65535)
+      (long long)B * H > 2147483647LL || (S + kWarps - 1) / kWarps > 65535 ||
+      smem_floats(hd) * (long long)sizeof(float) > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)

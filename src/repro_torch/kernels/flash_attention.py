@@ -18,8 +18,16 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
+MAX_SMEM_BYTES = 232_448            # 227 KB: the most one Hopper block may use
+
+
+def smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of one block, as the kernel lays it out: the
+    8 query rows, a 32-key tile of k (rows padded by one word) and of v, all
+    fp32."""
+    return 4 * (8 * hd + 32 * (hd + 1) + 32 * hd)
 
 
 @functools.lru_cache(maxsize=None)
@@ -60,6 +68,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if smem_bytes(hd) > MAX_SMEM_BYTES:
+        raise ValueError(f"flash_attention: head_dim {hd} needs "
+                         f"{smem_bytes(hd)} bytes of shared memory; a block "
+                         f"has {MAX_SMEM_BYTES}")
     K = k.shape[2]
     if K == 0 or H % K != 0:
         raise ValueError(f"flash_attention: {H} query heads, {K} kv heads; "
@@ -72,7 +84,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """softmax(q·kᵀ/√hd + mask)·v on the GPU. q: (B,S,H,hd); k, v:
     (B,T,K,hd), contiguous CUDA tensors of one dtype (fp32 or bf16),
-    hd in {32, 64, 128}, H % K == 0. Queries are the last S of the T
+    hd in {32, 64, 128, 256}, H % K == 0. Queries are the last S of the T
     positions. Returns (B,S,H,hd) in q's dtype."""
     _check(q, k, v)
     lib = _library()

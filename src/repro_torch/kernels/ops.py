@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import ssd_scan as _ssd
 
 
@@ -32,4 +33,14 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if devices == {"cpu"}:
         return ref.ssd_scan_ref(x, dt, A, B, C, chunk)
     raise ValueError(f"ssd_scan: no kernel for devices {sorted(devices)}; "
+                     "need all cuda or all cpu")
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    devices = {a.device.type, b.device.type}
+    if devices == {"cuda"}:
+        return _rg.rglru_scan(a, b)
+    if devices == {"cpu"}:
+        return ref.rglru_scan_ref(a, b)
+    raise ValueError(f"rglru_scan: no kernel for devices {sorted(devices)}; "
                      "need all cuda or all cpu")

@@ -106,3 +106,18 @@ def ssd_scan_naive(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             "bh,bhn,bhp->bhpn", dtf[:, t], Bh[:, t], x[:, t].float())
         ys.append(torch.einsum("bhn,bhpn->bhp", Ch[:, t], state))
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The RG-LRU linear recurrence h_t = a_t ⊙ h_{t-1} + b_t along axis 1
+    from a zero state (``repro.kernels.ref.rglru_scan_ref``, an associative
+    scan there; a sequential loop here). a, b: (B, S, W), any S and W;
+    computed and returned in fp32. Each step is one multiply and one add,
+    each rounded, in the order the CUDA kernel keeps."""
+    a, b = a.float(), b.float()
+    h = torch.zeros_like(a[:, 0])
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out

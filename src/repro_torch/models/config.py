@@ -2,10 +2,12 @@
 
 A copy of ``repro.models.config`` (the port imports nothing from ``repro``).
 A model is a stack of blocks; each block is (mixer, ffn). The port runs
-``("attn", "mlp")`` and ``("ssd", None)`` blocks; the other mixers stay in
-the schema so configs keep their reference shape. ``param_count`` is the
-reference's formula as it stands (2L + 1 norms whatever the block kinds, no
-``conv_b``/``norm_scale``), so the planner's figures match the reference's.
+``("attn", "mlp")``, ``("attn_window", "mlp")``, ``("rglru", "mlp")`` and
+``("ssd", None)`` blocks; the other kinds stay in the schema so configs keep
+their reference shape. ``param_count`` is the reference's formula as it
+stands (2L + 1 norms whatever the block kinds, no SSD ``conv_b``/
+``norm_scale`` and no RG-LRU ``conv_b``), so the planner's figures match the
+reference's.
 """
 from __future__ import annotations
 
@@ -160,5 +162,5 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     import importlib
-    for mod in ("olmo_1b", "mamba2_2_7b"):
+    for mod in ("olmo_1b", "mamba2_2_7b", "recurrentgemma_9b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

@@ -10,11 +10,14 @@ with one entry of ``layers`` per layer: the reference's ``lax.scan`` over
 stacked repeats becomes a Python loop, and its (repeat, ...) leaves become
 per-layer tensors (``repro_torch.checkpoint.load_flat`` splits them). An
 ``("ssd", None)`` layer has ``norm1`` and an SSD ``mixer`` (see
-``models.ssm``) and no ``norm2``/``ffn``. The cache is a list with one dict
-per layer and no leading repeat axis: ``{"k", "v"}`` of (B, L, K, hd) for
-attention, ``{"state", "conv"}`` for SSD.
+``models.ssm``) and no ``norm2``/``ffn``; an ``("rglru", "mlp")`` layer
+has an RG-LRU ``mixer`` (see ``models.rglru``). The cache is a list with one
+dict per layer and no leading repeat axis: ``{"k", "v"}`` of (B, L, K, hd)
+for attention (for ``attn_window`` a ring of L = min(cache_len, window)
+slots, position p in slot p % L), ``{"state", "conv"}`` for SSD and
+``{"h", "conv"}`` for RG-LRU.
 
-This port covers ``("attn", "mlp")`` and ``("ssd", None)`` blocks. Modes:
+This port covers the block kinds in ``KINDS``. Modes:
   prefill      — full sequence, returns last-position logits + cache
   decode_step  — one token per row against the cache (updated in place)
 """
@@ -25,7 +28,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, rglru, ssm
 from repro_torch.models.config import ArchConfig
 
 
@@ -33,17 +36,18 @@ from repro_torch.models.config import ArchConfig
 class ModelOptions:
     """Execution options orthogonal to the architecture.
 
-    ``use_kernels`` routes prefill attention and the prefill SSD scan through
-    the hand-written kernels (``kernels.ops``); unlike the reference it
-    defaults to True, because the kernels are what the port serves with. ``remat`` is kept
-    for parity with the reference's options; this slice has no training
-    step, so it changes nothing here."""
+    ``use_kernels`` routes prefill attention and the prefill SSD and RG-LRU
+    scans through the hand-written kernels (``kernels.ops``); unlike the
+    reference it defaults to True, because the kernels are what the port
+    serves with. ``remat`` is kept for parity with the reference's options;
+    the port has no training step, so it changes nothing here."""
 
     use_kernels: bool = True
     remat: bool = True
 
 
-KINDS = (("attn", "mlp"), ("ssd", None))
+KINDS = (("attn", "mlp"), ("attn_window", "mlp"), ("rglru", "mlp"),
+         ("ssd", None))
 
 
 def check_kind(kind) -> None:
@@ -51,6 +55,18 @@ def check_kind(kind) -> None:
     if tuple(kind) not in KINDS:
         raise NotImplementedError(
             f"block kind {kind}: this port covers {KINDS} blocks")
+
+
+def effective_window(cfg: ArchConfig, kind_mixer: str) -> int:
+    """The sliding window a mixer attends over (0: none)."""
+    return cfg.window if kind_mixer == "attn_window" else 0
+
+
+def _kv_rows(cfg: ArchConfig, kind_mixer: str, cache_len: int) -> int:
+    """Rows of an attention cache: a windowed mixer keeps a ring of
+    min(cache_len, window) slots, any other mixer all cache_len positions."""
+    w = effective_window(cfg, kind_mixer)
+    return min(cache_len, w) if w > 0 else cache_len
 
 
 # ---------------------------------------------------------------------------
@@ -62,8 +78,10 @@ def init_block_cache(cfg: ArchConfig, kind, batch: int, cache_len: int,
     check_kind(kind)
     if kind[0] == "ssd":
         return ssm.ssd_init_cache(cfg, batch, dtype, device)
+    if kind[0] == "rglru":
+        return rglru.rglru_init_cache(cfg, batch, dtype, device)
     K, hd = cfg.num_kv_heads, cfg.head_dim
-    shape = (batch, cache_len, K, hd)
+    shape = (batch, _kv_rows(cfg, kind[0], cache_len), K, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -81,19 +99,35 @@ def apply_block_full(params, x: torch.Tensor, cfg: ArchConfig, kind,
                               use_kernel=opts.use_kernels)
         if want_cache:
             cache = ssm.ssd_cache_from_prefill(params["mixer"], h, cfg)
-    else:
-        out, (k, v) = layers.attention_full(params["mixer"], h, cfg,
-                                            use_flash=opts.use_kernels)
+    elif mixer == "rglru":
+        out = rglru.rglru_forward(params["mixer"], h, cfg,
+                                  use_kernel=opts.use_kernels,
+                                  want_cache=want_cache)
         if want_cache:
-            pad = cache_len - x.shape[1]
-            cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
-                     "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
+            out, cache = out
+    else:
+        out, (k, v) = layers.attention_full(
+            params["mixer"], h, cfg, window=effective_window(cfg, mixer),
+            use_flash=opts.use_kernels)
+        if want_cache:
+            # a full-length cache (S <= cache_len) is the ring's padded case
+            S, L = x.shape[1], _kv_rows(cfg, mixer, cache_len)
+            cache = {"k": _ring_from_prefill(k, L, S),
+                     "v": _ring_from_prefill(v, L, S)}
     x = x + out
     if ffn is None:
         return x, cache
     h2 = layers.apply_norm(params["norm2"], x, cfg)
     x = x + layers.apply_mlp(params["ffn"], h2, cfg)
     return x, cache
+
+
+def _ring_from_prefill(k: torch.Tensor, L: int, S: int) -> torch.Tensor:
+    """The last L of S prefill keys (or values) in ring order: position p in
+    slot p % L; zero-padded to L when S <= L."""
+    if S <= L:
+        return F.pad(k, (0, 0, 0, 0, 0, L - S))
+    return torch.roll(k[:, S - L:], (S - L) % L, dims=1)
 
 
 def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
@@ -104,9 +138,16 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
     h = layers.apply_norm(params["norm1"], x, cfg)
     if mixer == "ssd":
         out, cache = ssm.ssd_step(params["mixer"], h, cache, cfg)
+    elif mixer == "rglru":
+        out, cache = rglru.rglru_step(params["mixer"], h, cache, cfg)
     else:
-        out, ck, cv = layers.attention_decode(params["mixer"], h, cache["k"],
-                                              cache["v"], pos, cfg)
+        # a windowed mixer's cache is a ring of L <= window slots, which
+        # holds exactly the last L positions
+        decode = (layers.attention_decode_ring
+                  if effective_window(cfg, mixer) > 0
+                  else layers.attention_decode)
+        out, ck, cv = decode(params["mixer"], h, cache["k"], cache["v"], pos,
+                             cfg)
         cache = {"k": ck, "v": cv}
     x = x + out
     if ffn is None:
@@ -131,10 +172,11 @@ def insert_cache_slot(cache: list, one: list, slot: int) -> list:
     of a batched cache of the same cache_len, **in place**, and return it.
     The batch axis is axis 0 of every per-layer tensor (the reference's
     scan caches carry a leading repeat axis; these do not). Each row keeps
-    the batched cache's dtype: the SSD state stays fp32. A row of another
-    shape raises rather than broadcast: a prompt shorter than
-    ``ssm_conv - 1`` tokens leaves a short SSD conv history (as in the
-    reference, whose slot update then keeps stale rows)."""
+    the batched cache's dtype: the SSD and RG-LRU states stay fp32. A row
+    of another shape raises rather than broadcast: a prompt shorter than
+    ``ssm_conv - 1`` (``rnn_conv - 1``) tokens leaves a short SSD (RG-LRU)
+    conv history (as in the reference, whose slot update then keeps stale
+    rows)."""
     for big, small in zip(cache, one):
         for name in big:
             if tuple(small[name].shape) != (1, *big[name].shape[1:]):

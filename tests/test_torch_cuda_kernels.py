@@ -1,5 +1,5 @@
-"""The CUDA kernels (flash attention, SSD chunked scan) against their plain
-PyTorch versions, on the GPU. Every test here needs a CUDA device of compute capability >= 9.0
+"""The CUDA kernels (flash attention, SSD chunked scan, RG-LRU scan) against
+their plain PyTorch versions, on the GPU. Every test here needs a CUDA device of compute capability >= 9.0
 (Hopper) and skips without one; this file imports no jax, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
 
@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rglru_scan as rg  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 # fp32: the kernel and the plain version sum in different orders on the
@@ -30,6 +31,9 @@ SHAPES = [
     (2, 100, 4, 64, 2, 100, True, 0),      # ragged: no tile divides 100
     (1, 37, 8, 128, 2, 90, True, 24),      # ragged T > S with a window
     (1, 64, 4, 64, 4, 48, True, 0),        # T < S: rows with no visible key
+    (1, 32, 16, 256, 1, 32, True, 2048),   # recurrentgemma-9b prefill (MQA)
+    (1, 300, 16, 256, 1, 300, True, 128),  # hd 256, ragged, the window bites
+    (2, 40, 4, 256, 1, 100, True, 48),     # hd 256, T > S with a window
 ]
 
 
@@ -89,6 +93,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
                            v[..., :48].contiguous())
+    assert fa.smem_bytes(256) == 73_856 <= fa.MAX_SMEM_BYTES
 
 
 def test_reduced_model_prefill_kernel_matches_einsum(cuda):
@@ -203,3 +208,85 @@ def test_reduced_mamba2_prefill_kernel_matches_plain(cuda):
                            M.ModelOptions(use_kernels=False), 48)
     assert ssd.ssd_scan.launches == before + cfg.num_layers
     torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+
+
+def test_reduced_recurrentgemma_prefill_kernels_match_plain(cuda):
+    from repro_torch.checkpoint import init_params
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    cfg = get_config("recurrentgemma-9b", reduced=True)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 96)), device=cuda)        # past the window
+    before = (rg.rglru_scan.launches, fa.flash_attention.launches)
+    with torch.no_grad():
+        lk, ck = M.prefill(params, {"tokens": toks}, cfg,
+                           M.ModelOptions(use_kernels=True), 128)
+        lp, cp = M.prefill(params, {"tokens": toks}, cfg,
+                           M.ModelOptions(use_kernels=False), 128)
+    assert (rg.rglru_scan.launches, fa.flash_attention.launches) == (
+        before[0] + 2, before[1] + 1)
+    torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    for got, want in zip(ck, cp):
+        for name in got:
+            torch.testing.assert_close(got[name], want[name], atol=1e-4,
+                                       rtol=1e-4)
+
+
+# ---------------- RG-LRU scan ----------------
+
+RGLRU_SHAPES = [
+    # B, S, W, a range
+    (2, 128, 512, (0.7, 0.999)),           # test_kernels.py grid
+    (1, 256, 256, (0.7, 0.999)),
+    (3, 64, 128, (0.7, 0.999)),
+    (1, 512, 1024, (0.7, 0.999)),
+    (1, 32, 4096, (0.7, 0.999)),           # recurrentgemma-9b serving
+    (2, 37, 300, (0.7, 0.999)),            # ragged
+    (1, 2048, 4096, (0.99, 0.9999)),       # long, slow decay: h ~ 100·|b|
+]
+
+
+def _rg_inputs(shape, device, seed=0):
+    B, S, W, (lo, hi) = shape
+    rng = np.random.default_rng(seed)
+    mk = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return mk(rng.uniform(lo, hi, (B, S, W))), mk(rng.standard_normal(
+        (B, S, W)))
+
+
+@pytest.mark.parametrize("shape", RGLRU_SHAPES)
+def test_rglru_kernel_matches_plain_version(cuda, shape):
+    a, b = _rg_inputs(shape, cuda)
+    got = rg.rglru_scan(a, b)
+    want = ref.rglru_scan_ref(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == a.shape
+    assert bool(got.isfinite().all())
+    tol = TOL[torch.float32]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_rglru_dispatch_launches_kernel_and_counts(cuda):
+    a, b = _rg_inputs(RGLRU_SHAPES[4], cuda)
+    before = rg.rglru_scan.launches
+    ops.rglru_scan(a, b)
+    assert rg.rglru_scan.launches == before + 1
+
+
+def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    a, b = _rg_inputs(RGLRU_SHAPES[2], cuda)
+    bad = [
+        (a.bfloat16(), b.bfloat16()),                       # dtype
+        (a.transpose(1, 2), b.transpose(1, 2)),             # layout
+        (a, b[:, :10].contiguous()),                        # shapes disagree
+        (a[0], b[0]),                                       # not 3-d
+        (a, b.cpu()),                                       # device
+        (a.cpu(), b.cpu()),                                 # CPU
+    ]
+    before = rg.rglru_scan.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            rg.rglru_scan(*args)
+    assert rg.rglru_scan.launches == before

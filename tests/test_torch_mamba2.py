@@ -192,7 +192,8 @@ def test_load_flat_bf16_keeps_ssm_scalars_fp32(weights):
     params = checkpoint.load_flat(path, cfg, device="cpu",
                                   dtype=torch.bfloat16)
     mixer = params["layers"][0]["mixer"]
-    for name in checkpoint.FP32_LEAVES:
+    for name in ("A_log", "D", "dt_bias"):
+        assert name in checkpoint.FP32_LEAVES
         assert mixer[name].dtype == torch.float32, name
     for name in ("in_proj", "conv_w", "conv_b", "norm_scale", "out_proj"):
         assert mixer[name].dtype == torch.bfloat16, name

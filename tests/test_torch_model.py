@@ -207,6 +207,7 @@ def test_prefill_into_slot_matches_batched_prefill(weights):
 
 def test_unsupported_block_kind_raises():
     cfg = dataclasses.replace(get_config("olmo-1b", reduced=True),
-                              block_pattern=(("attn_window", "mlp"),))
+                              block_pattern=(("attn", "moe"),),
+                              num_experts=4, experts_per_token=2)
     with pytest.raises(NotImplementedError):
         M.init_cache(cfg, 1, 8, torch.float32, M.ModelOptions(), device="cpu")
