@@ -15,18 +15,25 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    the reference's kernel test grid in fp32 and bf16, olmo-1b's and
    recurrentgemma-9b's prefill shapes (head_dim 128 MHA; head_dim 256 MQA
    with a window), ragged shapes (one at head_dim 256 where the window
-   bites), T > S shapes with a window and a T < S shape (whose blind rows
-   must be mean(v)). Time it, the plain version and
+   bites), T > S shapes with a window, a T < S shape (whose blind rows
+   must be mean(v)) and two 1024-token shapes that cross 32 KV tiles, one
+   causal at head_dim 128 and one windowed at head_dim 256 (bf16 there runs
+   on the tensor cores). At both serving paths' shapes, time the kernel
+   issued back to back (CUDA events), its device time alone (profiler),
+   its host enqueue time (host clock, no synchronise), the plain version and
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
-   it) at both serving paths' shapes.
-4. Hold the SSD kernel against its plain version: the reference's kernel
-   test grid (g = 2 and the production-like state among it), the serving
-   shape (one 128-chunk, 80 heads), a multi-chunk multi-batch shape that
-   carries the state, a large-dt shape whose upper triangle would overflow
-   if it were not masked, and a ragged shape (against the plain version of
-   the zero-padded inputs). Every output must be finite. Time the kernel
-   and the plain version at the serving shape. No single PyTorch call
-   computes SSD, so it has no library yardstick.
+   it).
+4. Hold the SSD kernels against their plain version: the reference's
+   kernel test grid (g = 2 and the production-like state among it), the
+   serving shape (one 128-chunk, 80 heads), a multi-chunk multi-batch shape
+   that carries the state, a large-dt shape whose upper triangle would
+   overflow if it were not masked, a ragged shape (against the plain version
+   of the zero-padded inputs) and a 16-chunk shape with 2 groups. Every
+   output must be finite. At the serving shape, time one call (its two to
+   four kernels) back to back, on the device (summed over its kernels, each
+   named) and its host enqueue, and the plain version; the 16-chunk shape's
+   device time by kernel too. No single PyTorch call computes SSD, so it has
+   no library yardstick.
    Hold the RG-LRU kernel against its plain version: the reference's kernel
    test grid, the serving shape (1, 32, 4096), a ragged shape and a long
    (1, 2048, 4096) one with a ~ U(0.99, 0.9999), where h grows to ~100·|b|.
@@ -50,7 +57,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    again from each run's measured rates (every plan is validated).
 7. Profile one drain of 8 requests on each model with ``torch.profiler``:
    wall time with and without tracing, the device's busy time and idle
-   share, and device time by kernel (each port kernel's per call).
+   share, and device time by kernel (each port kernel's per wrapper call,
+   summed over the device kernels it launches).
 8. Print ``{"kernels": [...]}`` on one line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -90,9 +98,12 @@ SHAPES = [
     RG_FLASH_SHAPE,                        # hd 256, MQA, window 2048
     (1, 300, 16, 256, 1, 300, True, 128),  # hd 256, ragged, the window bites
     (2, 40, 4, 256, 1, 100, True, 48),     # hd 256, T > S with a window
+    (1, 1024, 16, 128, 16, 1024, True, 0),   # many KV tiles, causal skipping
+    (1, 1024, 16, 256, 1, 1024, True, 256),  # many KV tiles, window skipping
 ]
 # b, s, h, p, g, n, chunk
 SSD_MAIN_SHAPE = (1, 128, 80, 64, 1, 128, 128)   # mamba2-2.7b prefill, padded
+SSD_MANY_CHUNKS = (1, 2048, 16, 64, 2, 128, 128)  # 16 chunks: all four kernels
 SSD_SHAPES = [
     (2, 128, 4, 32, 1, 32, 32),            # tests/test_kernels.py grid
     (1, 256, 2, 64, 1, 64, 64),
@@ -101,7 +112,9 @@ SSD_SHAPES = [
     SSD_MAIN_SHAPE,
     (2, 512, 80, 64, 1, 128, 128),         # 4 chunks x 2 rows: carries state
     (2, 300, 8, 64, 2, 128, 128),          # ragged: chunks of 128, 128, 44
-]
+    SSD_MANY_CHUNKS,                       # 16 chunks, 2 groups
+    (1, 50, 4, 32, 2, 16, 20),             # chunks of 20, 20, 10: 16-row
+]                                          # tiles do not divide them
 SSD_LARGE_DT = (1, 256, 8, 64, 1, 128, 128)      # dt ~ U(0.5, 2)
 # B, S, W, a range
 RGLRU_MAIN_SHAPE = (1, 32, 4096, (0.7, 0.999))   # recurrentgemma-9b prefill
@@ -142,6 +155,44 @@ def cuda_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_enqueue_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
+    """Host time to enqueue one call: a host clock over ``iters`` calls with
+    no synchronise inside (the device may still be running when it stops)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def device_ms(torch, fn, kernel: str, calls: int = 50) -> tuple[float, dict]:
+    """Device time of one call, from ``torch.profiler``: the intervals of
+    every device kernel whose name holds ``kernel`` over ``calls`` calls,
+    summed and divided by ``calls`` (a call that launches several kernels
+    counts them all). Also returns each such kernel's ms per call."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3
+    if not by_name:
+        fail(f"the profiler saw no device kernel named like {kernel}")
+    per = {k[:90]: v / calls for k, v in by_name.items()}
+    return sum(per.values()), per
+
+
 def _bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -170,9 +221,11 @@ def ssd_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
     """Least time for one SSD scan: x, B, C, dt and A read once and y
     written once at the HBM rate, against the multiply-adds the function
     needs at the fp32 rate outside the tensor cores (the kernel's
-    arithmetic is fp32): per (batch, head) row and chunk of Lc positions,
-    C·Bᵀ and scores·x over the Lc(Lc+1)/2 pairs j <= i, C·state (Lc·n·p)
-    after the first chunk, and the state update (Lc·n·p) before the last."""
+    arithmetic is fp32). Per chunk of Lc positions: C·Bᵀ over the
+    Lc(Lc+1)/2 pairs j <= i once per (batch, group), since the h/g heads of
+    a group share it; scores·x over the same pairs per (batch, head); and
+    per (batch, head) C·state (Lc·n·p) after the first chunk and the state
+    update (Lc·n·p) before the last."""
     b, s, h, p, g, n, L = shape
     esize = 4 if dtype_name == "float32" else 2
     nbytes = esize * (2 * b * s * h * p + 2 * b * s * g * n) + 4 * (b * s * h
@@ -180,9 +233,10 @@ def ssd_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
     chunks = [min(L, s - c) for c in range(0, s, L)]
     macs = 0
     for i, lc in enumerate(chunks):
-        macs += lc * (lc + 1) // 2 * (n + p)
-        macs += lc * n * p * ((i > 0) + (i < len(chunks) - 1))
-    return _bound(nbytes, 2.0 * macs * b * h, "float32")
+        pairs = lc * (lc + 1) // 2
+        macs += b * g * pairs * n + b * h * pairs * p
+        macs += b * h * lc * n * p * ((i > 0) + (i < len(chunks) - 1))
+    return _bound(nbytes, 2.0 * macs, "float32")
 
 
 def _compare(name: str, shape, dtype, got, want, tol: float) -> float:
@@ -249,6 +303,8 @@ def time_flash(torch, fa, ref, shape) -> dict:
                for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
     run = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
     ms = cuda_ms(torch, run)
+    host_ms = host_enqueue_ms(torch, run)
+    dev_ms, _ = device_ms(torch, run, "flash_attention_kernel")
     plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(
         q, k, v, causal=True, window=window))
     qt = q.transpose(1, 2)
@@ -258,11 +314,16 @@ def time_flash(torch, fa, ref, shape) -> dict:
     lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
                - run()).abs().max().item()      # the window is >= T here
     bound_ms, bound_by = attention_bound_ms(shape, "float32")
-    print(f"flash_attention {shape} float32: kernel {ms:.5f} ms, plain "
-          f"{plain_ms:.5f} ms, sdpa {library_ms:.5f} ms (|diff| {lib_err:.2e}),"
-          f" bound {bound_ms:.6f} ms ({bound_by})")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    sdpa_host_ms = host_enqueue_ms(torch, lambda: sdpa(qt, kt, vt,
+                                                       is_causal=True))
+    print(f"flash_attention {shape} float32: kernel {ms:.5f} ms back to back"
+          f" (device {dev_ms:.6f} ms, host enqueue {host_ms:.6f} ms), plain "
+          f"{plain_ms:.5f} ms, sdpa {library_ms:.5f} ms back to back (host "
+          f"enqueue {sdpa_host_ms:.6f} ms, |diff| {lib_err:.2e}), bound "
+          f"{bound_ms:.6f} ms ({bound_by})")
+    return {"ms": ms, "device_ms_alone": dev_ms, "host_enqueue_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_host_enqueue_ms": sdpa_host_ms}
 
 
 def ssd_inputs(torch, shape, dtype, seed: int, dt_range=(0.001, 0.1)):
@@ -313,13 +374,26 @@ def check_ssd(torch, ssd, ref) -> dict:
     # time at the serving shape, fp32 (the dtype it serves in)
     x, dt, A, B, C = ssd_inputs(torch, SSD_MAIN_SHAPE, torch.float32, 7)
     L = SSD_MAIN_SHAPE[6]
-    ms = cuda_ms(torch, lambda: ssd.ssd_scan(x, dt, A, B, C, L))
+    run = lambda: ssd.ssd_scan(x, dt, A, B, C, L)
+    ms = cuda_ms(torch, run)
+    host_ms = host_enqueue_ms(torch, run)
+    dev_ms, per_kernel = device_ms(torch, run, "ssd_scan_kernel")
     plain_ms = cuda_ms(torch, lambda: ref.ssd_scan_ref(x, dt, A, B, C, L),
                        iters=50)
     bound_ms, bound_by = ssd_bound_ms(SSD_MAIN_SHAPE, "float32")
-    print(f"ssd_scan {SSD_MAIN_SHAPE} float32: kernel {ms:.5f} ms, plain "
-          f"{plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); no "
-          "single PyTorch call computes SSD")
+    print(f"ssd_scan {SSD_MAIN_SHAPE} float32: kernels {ms:.5f} ms back to "
+          f"back (device {dev_ms:.6f} ms = {json.dumps(per_kernel)}, host "
+          f"enqueue {host_ms:.6f} ms), plain {plain_ms:.5f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}); no single PyTorch call computes "
+          "SSD")
+    # the 16-chunk shape runs all four kernels: their device times
+    big = SSD_MANY_CHUNKS
+    xb, dtb, Ab, Bb, Cb = ssd_inputs(torch, big, torch.float32, 8)
+    big_ms, big_per = device_ms(torch, lambda: ssd.ssd_scan(
+        xb, dtb, Ab, Bb, Cb, big[6]), "ssd_scan_kernel", calls=20)
+    print(f"ssd_scan {big} float32: device {big_ms:.6f} ms = "
+          f"{json.dumps(big_per)}, bound "
+          f"{ssd_bound_ms(big, 'float32')[0]:.6f} ms")
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:65",
@@ -327,7 +401,9 @@ def check_ssd(torch, ssd, ref) -> dict:
             "max_abs_err": worst[(SSD_MAIN_SHAPE, (0.001, 0.1),
                                   "torch.float32")],
             "max_abs_err_all_shapes": max(worst.values()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "ms": ms, "device_ms_alone": dev_ms,
+            "device_ms_by_kernel": per_kernel, "host_enqueue_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None}
 
 
@@ -501,11 +577,14 @@ def serve_path(torch, arch: str, wrappers: dict) -> dict:
     return counts
 
 
-def profile_serving(torch, arch: str) -> dict:
+def profile_serving(torch, arch: str, wrappers: dict) -> dict:
     """Phase 7: one drain of 8 frame requests on a full-width model, timed
     without and then with ``torch.profiler``; from the traced run, the
     device's busy time (sum of kernel intervals on its one stream), its idle
-    share of the wall time, and device time by kernel."""
+    share of the wall time, and device time by kernel. A port kernel's time
+    per call is the time of every device kernel named after it (the SSD
+    scan launches two to four per call) over its wrapper's calls in the
+    traced drain."""
     from repro_torch.models.config import get_config
     from repro_torch.serving import ContinuousBatchingEngine, StreamSimulator
 
@@ -523,6 +602,7 @@ def profile_serving(torch, arch: str) -> dict:
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
     sim.tick(streams)
+    before = {name: fn.launches for name, fn in wrappers.items()}
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -538,17 +618,20 @@ def profile_serving(torch, arch: str) -> dict:
             rec[1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    per_call = {}
-    for kernel in KERNEL_MIXERS:
-        hits = [v for k, v in by_name.items() if f"{kernel}_kernel" in k]
-        per_call[kernel] = (sum(v[0] for v in hits) / sum(v[1] for v in hits)
-                            if hits else None)
+    per_call, port = {}, {}
+    for kernel, fn in wrappers.items():
+        calls = fn.launches - before[kernel]
+        hits = {k: v for k, v in by_name.items() if f"{kernel}_kernel" in k}
+        per_call[kernel] = (sum(v[0] for v in hits.values()) / calls
+                            if hits and calls else None)
+        port.update({k[:90]: (round(v[0], 4), v[1]) for k, v in hits.items()})
     out = {"arch": arch, "requests": 8, "wall_ms": wall_plain * 1e3,
            "wall_traced_ms": wall_traced * 1e3,
            "device_busy_ms": busy_ms if by_name else None,
            "device_idle_share": (1 - busy_ms / (wall_traced * 1e3))
            if by_name else None,
            "device_ms_per_call": per_call,
+           "port_kernels_ms": port,
            "top_device_kernels_ms": [(k[:80], round(v[0], 4), v[1])
                                      for k, v in top]}
     print(f"serving profile (8 requests, full {arch}): " + json.dumps(out))
@@ -639,7 +722,7 @@ def main() -> None:
     # 7) where the time goes on the serving paths (after the counts are
     # read); a kernel's device_ms is its time a call on its first path
     for arch, kernels in SERVED.items():
-        prof = profile_serving(torch, arch)
+        prof = profile_serving(torch, arch, wrappers)
         for name in kernels:
             per_call = prof["device_ms_per_call"][name]
             records[name].setdefault("device_ms", per_call)

@@ -87,6 +87,59 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.reshape(b, s, h, p).to(x.dtype)
 
 
+def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bm: torch.Tensor, Cm: torch.Tensor,
+                     chunk: int) -> torch.Tensor:
+    """The chunk-parallel form the CUDA kernels compute, step by step, so
+    that the CPU tests can hold the decomposition itself against the
+    reference: (1) C·Bᵀ once per (batch, chunk, group), lower triangle only;
+    (2) every chunk's local state Σ_j (B_j dt_j e^{cs_end - cs_j}) ⊗ x_j;
+    (3) the pass over chunks, state_c = state_{c-1}·e^{cs_end} + local_c,
+    giving the state entering each chunk; (4) the outputs
+    (C·Bᵀ ⊙ e^{cs_i - cs_j} ⊙ dt_j)·x + e^{cs_i} C·state_in. Same inputs as
+    ``ssd_scan_ref``, but s need not be a multiple of chunk: the last chunk
+    is zero-padded (dt = 0 there, so the rows before it are unchanged) and
+    the padding's rows are dropped. fp32, returned in x's dtype."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    L, rep = chunk, h // g
+    nc = -(-s // L)
+    pad = lambda a: torch.nn.functional.pad(
+        a.float(), (0, 0) * (a.dim() - 2) + (0, nc * L - s))
+    xc = pad(x).reshape(b, nc, L, h, p)
+    dtc = pad(dt).reshape(b, nc, L, h)
+    Bc = pad(Bm).reshape(b, nc, L, g, n)
+    Cc = pad(Cm).reshape(b, nc, L, g, n)
+    cs = torch.cumsum(dtc * A.float(), dim=2)                  # (b,nc,L,h)
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+
+    # (1) C·Bᵀ per group, shared by its h/g heads
+    cb = torch.einsum("bcign,bcjgn->bcgij", Cc, Bc) * tri      # (b,nc,g,i,j)
+    # (2) local states, (n, p) per head as the kernel keeps them
+    w = dtc * torch.exp(cs[:, :, -1:, :] - cs)                 # (b,nc,L,h)
+    Bh = Bc.repeat_interleave(rep, dim=3)                      # (b,nc,L,h,n)
+    local = torch.einsum("bcjhn,bcjhp->bchnp", Bh, xc * w[..., None])
+    # (3) the state entering each chunk
+    decay = torch.exp(cs[:, :, -1, :])                         # (b,nc,h)
+    state = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * decay[:, c, :, None, None] + local[:, c]
+    st = torch.stack(entering, dim=1)                          # (b,nc,h,n,p)
+    # (4) outputs; e^{cs_i - cs_j} only for j <= i
+    csh = cs.transpose(2, 3)                                   # (b,nc,h,L)
+    diff = csh[..., :, None] - csh[..., None, :]               # (b,nc,h,i,j)
+    seg = torch.exp(torch.where(tri, diff, -torch.inf))
+    scores = (cb.repeat_interleave(rep, dim=2) * seg
+              * dtc.transpose(2, 3)[..., None, :])
+    y = torch.einsum("bchij,bcjhp->bcihp", scores, xc)
+    Ch = Cc.repeat_interleave(rep, dim=3)                      # (b,nc,L,h,n)
+    y_off = torch.einsum("bcihn,bchnp->bcihp", Ch, st)
+    y = y + y_off * torch.exp(cs)[..., None]
+    return y.reshape(b, nc * L, h, p)[:, :s].to(x.dtype)
+
+
 def ssd_scan_naive(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
     """The O(s) state recurrence, the ground-truth definition of the scan

@@ -34,6 +34,9 @@ SHAPES = [
     (1, 32, 16, 256, 1, 32, True, 2048),   # recurrentgemma-9b prefill (MQA)
     (1, 300, 16, 256, 1, 300, True, 128),  # hd 256, ragged, the window bites
     (2, 40, 4, 256, 1, 100, True, 48),     # hd 256, T > S with a window
+    (1, 1024, 16, 128, 16, 1024, True, 0),   # many KV tiles: causal skipping
+    (1, 1024, 16, 256, 1, 1024, True, 256),  # many KV tiles: window skipping
+    (2, 200, 8, 64, 2, 333, False, 0),     # many tiles, ragged, encoder
 ]
 
 
@@ -93,7 +96,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         fa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
                            v[..., :48].contiguous())
-    assert fa.smem_bytes(256) == 73_856 <= fa.MAX_SMEM_BYTES
+    assert fa.smem_bytes(256) == 140_416 <= fa.MAX_SMEM_BYTES
+    assert fa.smem_bytes(256, torch.bfloat16) == 101_376
 
 
 def test_reduced_model_prefill_kernel_matches_einsum(cuda):
@@ -125,7 +129,10 @@ SSD_SHAPES = [
     (2, 512, 80, 64, 1, 128, 128, (0.001, 0.1)),   # carries the state
     (2, 300, 8, 64, 2, 128, 128, (0.001, 0.1)),    # ragged last chunk
     (1, 256, 8, 64, 1, 128, 128, (0.5, 2.0)),      # large dt
-]
+    (1, 2048, 16, 64, 2, 128, 128, (0.001, 0.1)),  # 16 chunks, 2 groups
+    (1, 100, 4, 32, 2, 36, 32, (0.001, 0.1)),      # n % 8 = 4: 8-byte copies
+    (1, 50, 4, 32, 2, 16, 20, (0.001, 0.1)),       # chunk 20: 16-row tiles
+]                                                  # do not divide it; 20, 20, 10
 
 
 def _ssd_inputs(shape, dtype, device, seed=0):
@@ -169,6 +176,22 @@ def test_ssd_dispatch_launches_kernel_and_counts(cuda):
     before = ssd.ssd_scan.launches
     ops.ssd_scan(*args, 128)
     assert ssd.ssd_scan.launches == before + 1
+    # a multi-chunk call launches four kernels and counts once
+    ops.ssd_scan(*_ssd_inputs(SSD_SHAPES[5], torch.float32, cuda), 128)
+    assert ssd.ssd_scan.launches == before + 2
+
+
+@pytest.mark.parametrize("p,n,chunk", [(16, 16, 16), (32, 36, 32),
+                                       (64, 128, 128), (128, 128, 128),
+                                       (64, 128, 256)])
+def test_ssd_smem_sizing_agrees_with_the_kernels(cuda, p, n, chunk):
+    """The wrapper's refusal rests on its own copy of the kernels' shared
+    memory layout; the C library reports the same bytes."""
+    lib = ssd._library()
+    for esize in (4, 2):
+        for chunks in (1, 3):
+            assert lib.ssd_scan_smem_bytes(p, n, chunk, esize, chunks) == \
+                ssd.smem_bytes(p, n, chunk, esize, chunks)
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -76,3 +76,37 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _inputs(0, 1, 16, 2, 32, 2, 16))
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("hd,dtype,want", [
+    (32, torch.float32, 18_560), (64, torch.float32, 35_968),
+    (128, torch.float32, 70_784), (256, torch.float32, 140_416),
+    (128, torch.bfloat16, 52_224), (256, torch.bfloat16, 101_376),
+])
+def test_smem_bytes_follow_the_kernels_layout(hd, dtype, want):
+    """A ring of two 32-key K/V tiles beside the block's query rows (8 in
+    fp32, 64 in bf16); every head dim fits a Hopper block."""
+    assert tfa.smem_bytes(hd, dtype) == want <= tfa.MAX_SMEM_BYTES
+
+
+def test_shape_checks_refuse_what_the_kernel_does_not_take():
+    """The device-independent checks, on CPU tensors."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(0, 1, 32, 4, 64, 4, 32))
+    tfa.check_shapes(q, k, v)                            # the good case
+    bad = [
+        (q.half(), k.half(), v.half()),                  # dtype
+        (q, k.bfloat16(), v),                            # mixed dtypes
+        (q[0], k, v),                                    # not 4-d
+        (q, k, v[:, :16]),                               # k, v differ
+        (q[..., :48].contiguous(), k[..., :48].contiguous(),
+         v[..., :48].contiguous()),                      # head dim 48
+        (q, k[:, :, :3].contiguous(), v[:, :, :3].contiguous()),  # 4 % 3
+        (q[:, :0], k, v),                                # empty
+        (q.transpose(1, 2).contiguous().transpose(1, 2), k, v),  # layout
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tfa.check_shapes(*args)
+    off = torch.empty(q.numel() + 1)[1:].view(q.shape)  # 4 bytes off
+    with pytest.raises(ValueError, match="16 bytes"):
+        tfa.check_shapes(off, k, v)
