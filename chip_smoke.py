@@ -7,10 +7,10 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
 1. Require a CUDA device of compute capability >= 9.0; print the card's
    name and power limit as ``nvidia-smi`` reports them.
-2. Build the CUDA kernels (flash attention, SSD chunked scan, RG-LRU scan)
-   from ``src/repro_torch/kernels/csrc`` with nvcc, one compiler per
-   source, all started together (cached under ``build/``), and print their
-   reports.
+2. Build the CUDA kernels (flash attention, SSD chunked scan, RG-LRU: the
+   scan and the fused gates-and-scan form, one source) from
+   ``src/repro_torch/kernels/csrc`` with nvcc, one compiler per source, all
+   started together (cached under ``build/``), and print their reports.
 3. Hold the flash kernel against its plain PyTorch version on seeded inputs:
    the reference's kernel test grid in fp32 and bf16, olmo-1b's and
    recurrentgemma-9b's prefill shapes (head_dim 128 MHA; head_dim 256 MQA
@@ -34,11 +34,17 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    named) and its host enqueue, and the plain version; the 16-chunk shape's
    device time by kernel too. No single PyTorch call computes SSD, so it has
    no library yardstick.
-   Hold the RG-LRU kernel against its plain version: the reference's kernel
+   Hold the RG-LRU scan against its plain version: the reference's kernel
    test grid, the serving shape (1, 32, 4096), a ragged shape and a long
    (1, 2048, 4096) one with a ~ U(0.99, 0.9999), where h grows to ~100·|b|.
-   Every output must be finite. Time the kernel and the plain version at
-   the serving shape; no single PyTorch call computes the recurrence.
+   Hold the fused RG-LRU (gates, scan, gelu gating; y and the final state)
+   against its plain version in fp32 and bf16 at the prefill (1, 32, 4096),
+   the 8-slot decode (8, 1, 4096) from a non-zero state, a ragged (2, 37,
+   300) and the long (1, 2048, 4096). Every output must be finite. Time
+   both forms at their main shapes, the fused form also at the decode's,
+   and both at the long one (back to back, device alone, host enqueue),
+   and their plain versions; no single PyTorch call computes the
+   recurrence.
    Tolerances for every kernel: fp32 1e-4 (summation order differs on the
    card), bf16 2e-2 (both sides round once to bf16), each absolute plus
    relative to the plain value.
@@ -50,15 +56,19 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 6. The main paths: ``serve(arch, reduced=False, ...)`` with the continuous-
    batching engine for each model in turn. Every kernel's launch count is
    set to 0 just before each run and read just after; each must equal (the
-   served config's layers of the kernel's kind) x (prefills), so olmo-1b
-   launches only the flash kernel, mamba2-2.7b only the SSD kernel, and
-   recurrentgemma-9b the RG-LRU kernel in its 26 recurrent layers and the
-   flash kernel in its 12 local-attention layers. The H100 fleet is planned
-   again from each run's measured rates (every plan is validated).
+   served config's layers of the kernel's kind) x (prefills, and for the
+   fused RG-LRU also the decode steps), the engine's own counts with the
+   warmup's: olmo-1b launches only the flash kernel, mamba2-2.7b only the
+   SSD kernel, and recurrentgemma-9b the fused RG-LRU kernel in its 26
+   recurrent layers in every prefill and decode step and the flash kernel
+   in its 12 local-attention layers in every prefill; the scan-only RG-LRU
+   kernel is on no served path. The H100 fleet is planned again from each
+   run's measured rates (every plan is validated).
 7. Profile one drain of 8 requests on each model with ``torch.profiler``:
    wall time with and without tracing, the device's busy time and idle
    share, and device time by kernel (each port kernel's per wrapper call,
-   summed over the device kernels it launches).
+   summed over the device kernels it launches; the fused RG-LRU kernel is
+   named ``rglru_gated_scan_kernel`` in the trace).
 8. Print ``{"kernels": [...]}`` on one line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -127,12 +137,24 @@ RGLRU_SHAPES = [
     (2, 37, 300, (0.7, 0.999)),            # ragged
     (1, 2048, 4096, (0.99, 0.9999)),       # long, slow decay: h ~ 100·|b|
 ]
-# the mixers whose layers launch each kernel once per prefill
-KERNEL_MIXERS = {"flash_attention": ("attn", "attn_window"),
-                 "ssd_scan": ("ssd",), "rglru_scan": ("rglru",)}
+RGLRU_LONG_SHAPE = RGLRU_SHAPES[-1]
+# B, S, W, with an initial state h0
+GATED_MAIN_SHAPE = (1, 32, 4096, False)          # recurrentgemma-9b prefill
+GATED_DECODE_SHAPE = (8, 1, 4096, True)          # its decode of 8 slots
+GATED_LONG_SHAPE = (1, 2048, 4096, False)
+GATED_SHAPES = [GATED_MAIN_SHAPE, GATED_DECODE_SHAPE,
+                (2, 37, 300, False),             # ragged
+                GATED_LONG_SHAPE]
+# the mixers whose layers launch each kernel, and whether a decode step
+# launches it too (once per such layer) or only a prefill does; the
+# scan-only RG-LRU kernel is on no served path since the fused one replaced
+# it there
+KERNEL_MIXERS = {"flash_attention": (("attn", "attn_window"), False),
+                 "ssd_scan": (("ssd",), False), "rglru_scan": ((), False),
+                 "rglru_gated_scan": (("rglru",), True)}
 # each served model and the kernels its main path runs
 SERVED = {"olmo-1b": ["flash_attention"], "mamba2-2.7b": ["ssd_scan"],
-          "recurrentgemma-9b": ["rglru_scan", "flash_attention"]}
+          "recurrentgemma-9b": ["rglru_gated_scan", "flash_attention"]}
 
 
 def fail(msg: str) -> None:
@@ -173,20 +195,31 @@ def device_ms(torch, fn, kernel: str, calls: int = 50) -> tuple[float, dict]:
     """Device time of one call, from ``torch.profiler``: the intervals of
     every device kernel whose name holds ``kernel`` over ``calls`` calls,
     summed and divided by ``calls`` (a call that launches several kernels
-    counts them all). Also returns each such kernel's ms per call."""
+    counts them all). Also returns each such kernel's ms per call. A trace
+    that holds no such kernel is taken again, twice at most (one such empty
+    trace was seen on the card, once, in a process that had traced other
+    kernels before)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    by_name: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, float] = {}
+        seen = set()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                seen.add(e.name[:80])
+                if kernel in e.name:
+                    by_name[e.name] = by_name.get(e.name, 0.0) + \
+                        e.time_range.elapsed_us() / 1e3
+        if by_name:
+            break
+        print(f"device_ms: no device kernel named like {kernel} among "
+              f"{len(seen)} traced: {sorted(seen)[:6]}", file=sys.stderr)
     if not by_name:
         fail(f"the profiler saw no device kernel named like {kernel}")
     per = {k[:90]: v / calls for k, v in by_name.items()}
@@ -425,9 +458,18 @@ def rglru_inputs(torch, shape, seed: int):
     return a, b
 
 
+def time_kernel(torch, run, kernel: str) -> dict:
+    """One call's times: back to back (CUDA events), device alone (the
+    profiler's intervals of the device kernels named like ``kernel``) and
+    host enqueue (host clock, no synchronise)."""
+    return {"ms": cuda_ms(torch, run),
+            "device_ms_alone": device_ms(torch, run, kernel)[0],
+            "host_enqueue_ms": host_enqueue_ms(torch, run)}
+
+
 def check_rglru(torch, rg, ref) -> dict:
-    """Phase 4, RG-LRU. Returns the kernel's record for the final JSON
-    line."""
+    """Phase 4, the RG-LRU scan. Returns the kernel's record for the final
+    JSON line."""
     worst = {}
     for i, shape in enumerate(RGLRU_SHAPES):
         a, b = rglru_inputs(torch, shape, 300 + i)
@@ -436,21 +478,111 @@ def check_rglru(torch, rg, ref) -> dict:
         torch.cuda.synchronize()
         worst[shape] = _compare("rglru_scan", shape, torch.float32, got,
                                 want, FP32_TOL)
-    a, b = rglru_inputs(torch, RGLRU_MAIN_SHAPE, 7)
-    ms = cuda_ms(torch, lambda: rg.rglru_scan(a, b))
-    plain_ms = cuda_ms(torch, lambda: ref.rglru_scan_ref(a, b), iters=50)
-    bound_ms, bound_by = rglru_bound_ms(RGLRU_MAIN_SHAPE)
-    print(f"rglru_scan {RGLRU_MAIN_SHAPE[:3]} float32: kernel {ms:.5f} ms, "
-          f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
-          "no single PyTorch call computes the recurrence")
+    times = {}
+    for shape in (RGLRU_MAIN_SHAPE, RGLRU_LONG_SHAPE):
+        a, b = rglru_inputs(torch, shape, 7)
+        t = time_kernel(torch, lambda: rg.rglru_scan(a, b),
+                        "rglru_scan_kernel")
+        t["plain_ms"] = cuda_ms(torch, lambda: ref.rglru_scan_ref(a, b),
+                                iters=50 if shape[1] < 1024 else 3,
+                                warmup=3)
+        t["bound_ms"], t["bound_by"] = rglru_bound_ms(shape)
+        times[shape] = t
+        print(f"rglru_scan {shape[:3]} float32: kernel {t['ms']:.5f} ms back "
+              f"to back (device {t['device_ms_alone']:.6f} ms, host enqueue "
+              f"{t['host_enqueue_ms']:.6f} ms), plain {t['plain_ms']:.5f} ms, "
+              f"bound {t['bound_ms']:.6f} ms ({t['bound_by']}); no single "
+              "PyTorch call computes the recurrence")
+    long = times[RGLRU_LONG_SHAPE]
     return {"name": "rglru_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
             "replaces": "src/repro/kernels/rglru_scan.py:40",
             "shape": list(RGLRU_MAIN_SHAPE[:3]), "dtype": "float32",
             "max_abs_err": worst[RGLRU_MAIN_SHAPE],
             "max_abs_err_all_shapes": max(worst.values()),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            **times[RGLRU_MAIN_SHAPE], "library_ms": None,
+            "long": {"shape": list(RGLRU_LONG_SHAPE[:3]),
+                     "max_abs_err": worst[RGLRU_LONG_SHAPE], **long}}
+
+
+def gated_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
+    """Least time for one fused RG-LRU call: r_pre, i_pre, xc and gate_pre
+    read and y written once in the inputs' dtype, lam (and h0 when given)
+    read and the final state written once in fp32, at the HBM rate; against
+    27 operations an element (two sigmoids, the gate's exp and
+    multiplies, a·a, 1 -, clamp, sqrt, the scan's multiply and add, gelu
+    with tanh and the gating product; a transcendental counts as one) at
+    the fp32 rate outside the tensor cores."""
+    B, S, W, with_h0 = shape
+    esize = 4 if dtype_name == "float32" else 2
+    n = B * S * W
+    nbytes = 5 * n * esize + 4 * W + 4 * B * W * (1 + with_h0)
+    return _bound(nbytes, 27.0 * n, "float32")
+
+
+def gated_inputs(torch, shape, dtype, seed: int):
+    """r_pre, i_pre, xc, gate_pre ~ N(0, 1) in ``dtype``, lam as
+    ``init_rglru`` draws it (a in [0.9, 0.999] at r = 1) and h0 ~ N(0, 1)
+    fp32 (or None), on the card."""
+    B, S, W, with_h0 = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ins = [torch.randn((B, S, W), generator=gen, device="cuda").to(dtype)
+           for _ in range(4)]
+    u = torch.rand((W,), generator=gen, device="cuda") * (
+        0.999 ** 2 - 0.9 ** 2) + 0.9 ** 2
+    lam = torch.log(torch.expm1(-torch.log(u) / 16.0))
+    h0 = (torch.randn((B, W), generator=gen, device="cuda") if with_h0
+          else None)
+    return ins, lam, h0
+
+
+def check_rglru_gated(torch, rg, ref) -> dict:
+    """Phase 4, the fused RG-LRU: y and the final state against the plain
+    version (gates, loop scan, gelu gating) in fp32 and bf16 on every shape
+    of ``GATED_SHAPES``, the decode's from a non-zero h0; then the times of
+    one call and of the plain version in fp32 at the prefill, decode and
+    long shapes. Returns the kernel's record."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        for i, shape in enumerate(GATED_SHAPES):
+            ins, lam, h0 = gated_inputs(torch, shape, dtype, 400 + i)
+            y, h = rg.rglru_gated_scan(*ins, lam, h0)
+            want_y, want_h = ref.rglru_gated_scan_ref(*ins, lam, h0)
+            torch.cuda.synchronize()
+            worst[(shape, str(dtype))] = max(
+                _compare("rglru_gated_scan", shape, dtype, y, want_y, tol),
+                _compare("rglru_gated_scan state", shape, dtype, h, want_h,
+                         FP32_TOL))
+    times = {}
+    for shape in (GATED_MAIN_SHAPE, GATED_DECODE_SHAPE, GATED_LONG_SHAPE):
+        ins, lam, h0 = gated_inputs(torch, shape, torch.float32, 7)
+        state = None if h0 is None else h0.clone()
+        run = lambda: rg.rglru_gated_scan(*ins, lam, state, state)
+        t = time_kernel(torch, run, "rglru_gated_scan_kernel")
+        plain = lambda: ref.rglru_gated_scan_ref(*ins, lam, h0)
+        long = shape[1] >= 1024
+        t["plain_ms"] = cuda_ms(torch, plain, iters=3 if long else 50,
+                                warmup=3)
+        t["bound_ms"], t["bound_by"] = gated_bound_ms(shape, "float32")
+        times[shape] = t
+        print(f"rglru_gated_scan {shape} float32: kernel {t['ms']:.5f} ms "
+              f"back to back (device {t['device_ms_alone']:.6f} ms, host "
+              f"enqueue {t['host_enqueue_ms']:.6f} ms), plain "
+              f"{t['plain_ms']:.5f} ms, bound {t['bound_ms']:.6f} ms "
+              f"({t['bound_by']}); no single PyTorch call computes the "
+              "recurrence")
+    key = lambda shape: (shape, "torch.float32")
+    return {"name": "rglru_gated_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            "replaces": "src/repro/models/rglru.py:58 + "
+                        "src/repro/kernels/rglru_scan.py:40",
+            "shape": list(GATED_MAIN_SHAPE[:3]), "dtype": "float32",
+            "max_abs_err": worst[key(GATED_MAIN_SHAPE)],
+            "max_abs_err_all_shapes": max(worst.values()),
+            **times[GATED_MAIN_SHAPE], "library_ms": None,
+            "by_shape": {str(s): {"max_abs_err": worst[key(s)], **t}
+                         for s, t in times.items() if s != GATED_MAIN_SHAPE}}
 
 
 def _params(torch, cfg):
@@ -522,33 +654,71 @@ def check_full_model(torch, arch: str) -> None:
     torch.cuda.empty_cache()
 
 
-def expected_launches(cfg, kernel: str, prefills: int) -> int:
-    """Launches of ``kernel`` in ``prefills`` prefills of ``cfg``: one per
-    layer whose mixer the kernel carries."""
-    layers = sum(1 for mixer, _ in cfg.layer_kinds
-                 if mixer in KERNEL_MIXERS[kernel])
-    return layers * prefills
+def expected_launches(cfg, kernel: str, prefills: int,
+                      decode_steps: int) -> int:
+    """Launches of ``kernel`` in ``prefills`` prefills and ``decode_steps``
+    decode steps of ``cfg``: one per layer whose mixer the kernel carries,
+    in each prefill and, for a kernel that decode runs too, in each step."""
+    mixers, in_decode = KERNEL_MIXERS[kernel]
+    layers = sum(1 for mixer, _ in cfg.layer_kinds if mixer in mixers)
+    return layers * (prefills + (decode_steps if in_decode else 0))
+
+
+def _counting_engine():
+    """A subclass of the continuous-batching engine that keeps the prefills
+    and decode steps it ran before each ``reset_stats`` (``serve()`` resets
+    them after its warmup request), and the list of its instances."""
+    from repro_torch.serving import ContinuousBatchingEngine
+
+    class CountingEngine(ContinuousBatchingEngine):
+        built = []
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.before_reset = {"prefills": 0, "decode_steps": 0}
+            CountingEngine.built.append(self)
+
+        def reset_stats(self) -> None:
+            for k in self.before_reset:
+                self.before_reset[k] += self.stats[k]
+            super().reset_stats()
+
+        def totals(self) -> dict:
+            return {k: v + self.stats[k] for k, v in self.before_reset.items()}
+
+    return CountingEngine
 
 
 def serve_path(torch, arch: str, wrappers: dict) -> dict:
     """Phase 6 for one model: serve it at full width with every launch
-    count set to 0 just before and read just after, check each count, and
-    plan the H100 fleet again from the measured rates. Returns the counts."""
+    count set to 0 just before and read just after, check each count
+    against the prefills and decode steps the engine ran (warmup included),
+    and plan the H100 fleet again from the measured rates. Returns the
+    counts."""
     from repro_torch.core.gpu_catalog import (plan_gpu_fleet,
                                               streams_from_measured)
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.models.config import get_config
 
-    for fn in wrappers.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    report = serve(arch, reduced=False, n_streams=4, fps=2, seconds=3,
-                   engine="continuous")
-    torch.cuda.synchronize()
-    counts = {name: fn.launches for name, fn in wrappers.items()}
-    wall = time.perf_counter() - t0
+    engine_cls = _counting_engine()
+    plain_cls = serve_mod.ContinuousBatchingEngine
+    serve_mod.ContinuousBatchingEngine = engine_cls
+    try:
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        report = serve_mod.serve(arch, reduced=False, n_streams=4, fps=2,
+                                 seconds=3, engine="continuous")
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        wall = time.perf_counter() - t0
+    finally:
+        serve_mod.ContinuousBatchingEngine = plain_cls
+    ran = engine_cls.built[-1].totals()
     print(json.dumps(report, sort_keys=True))
-    print(f"serve {arch} wall time {wall:.2f} s; launches {counts}")
+    print(f"serve {arch} wall time {wall:.2f} s; launches {counts}; engine "
+          f"ran {ran['prefills']} prefills and {ran['decode_steps']} decode "
+          "steps, warmup included")
     frames = report["frames_served"]
     if frames <= 0:
         fail(f"{arch}: served no frames")
@@ -556,12 +726,17 @@ def serve_path(torch, arch: str, wrappers: dict) -> dict:
         fail(f"{arch}: engine request count disagrees with frames served")
     # every served frame is one prefill, plus the one warmup request that
     # serve() runs before it resets the stats
+    if ran["prefills"] != frames + 1:
+        fail(f"{arch}: {ran['prefills']} prefills for {frames} frames and "
+             "one warmup request")
     cfg = get_config(arch)
     for name, got in counts.items():
-        want = expected_launches(cfg, name, frames + 1)
+        want = expected_launches(cfg, name, ran["prefills"],
+                                 ran["decode_steps"])
         if got != want:
-            fail(f"{arch}: {name} launched {got} times; expected {want} "
-                 f"({want // (frames + 1)} layers x {frames + 1} prefills)")
+            fail(f"{arch}: {name} launched {got} times; expected {want} for "
+                 f"{ran['prefills']} prefills and {ran['decode_steps']} "
+                 "decode steps")
     for name in SERVED[arch]:
         if counts[name] == 0:
             fail(f"{arch}: its kernel {name} never launched")
@@ -698,12 +873,14 @@ def main() -> None:
     # 2) build
     build_kernels({"flash_attention": fa, "ssd_scan": ssd, "rglru_scan": rg})
     wrappers = {"flash_attention": fa.flash_attention,
-                "ssd_scan": ssd.ssd_scan, "rglru_scan": rg.rglru_scan}
+                "ssd_scan": ssd.ssd_scan, "rglru_scan": rg.rglru_scan,
+                "rglru_gated_scan": rg.rglru_gated_scan}
 
     # 3-4) each kernel against its plain version, and its times
     records = {"flash_attention": check_flash(torch, fa, ref),
                "ssd_scan": check_ssd(torch, ssd, ref),
-               "rglru_scan": check_rglru(torch, rg, ref)}
+               "rglru_scan": check_rglru(torch, rg, ref),
+               "rglru_gated_scan": check_rglru_gated(torch, rg, ref)}
 
     # 5) full-width models, kernel path against the plain path
     for arch in SERVED:

@@ -6,6 +6,8 @@ fallback: a CUDA tensor the kernel refuses raises.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
@@ -44,3 +46,20 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return ref.rglru_scan_ref(a, b)
     raise ValueError(f"rglru_scan: no kernel for devices {sorted(devices)}; "
                      "need all cuda or all cpu")
+
+
+def rglru_gated_scan(r_pre: torch.Tensor, i_pre: torch.Tensor,
+                     xc: torch.Tensor, gate_pre: torch.Tensor,
+                     lam: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                     state_out: Optional[torch.Tensor] = None):
+    ts = [r_pre, i_pre, xc, gate_pre, lam] + [
+        t for t in (h0, state_out) if t is not None]
+    devices = {t.device.type for t in ts}
+    if devices == {"cuda"}:
+        return _rg.rglru_gated_scan(r_pre, i_pre, xc, gate_pre, lam, h0,
+                                    state_out)
+    if devices == {"cpu"}:
+        return ref.rglru_gated_scan_ref(r_pre, i_pre, xc, gate_pre, lam, h0,
+                                        state_out)
+    raise ValueError(f"rglru_gated_scan: no kernel for devices "
+                     f"{sorted(devices)}; need all cuda or all cpu")

@@ -4,10 +4,13 @@ and the oracle each CUDA kernel is held against on the card. Ported from
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+RG_C = 8.0                      # the RG-LRU's gate constant c
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -161,16 +164,51 @@ def ssd_scan_naive(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return torch.stack(ys, dim=1).to(x.dtype)
 
 
-def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The RG-LRU linear recurrence h_t = a_t ⊙ h_{t-1} + b_t along axis 1
-    from a zero state (``repro.kernels.ref.rglru_scan_ref``, an associative
-    scan there; a sequential loop here). a, b: (B, S, W), any S and W;
-    computed and returned in fp32. Each step is one multiply and one add,
-    each rounded, in the order the CUDA kernel keeps."""
+    from ``h0`` (B, W), or from a zero state when None
+    (``repro.kernels.ref.rglru_scan_ref``, an associative scan there; a
+    sequential loop here). a, b: (B, S, W), any S and W; computed and
+    returned in fp32. Each step is one multiply and one add, each rounded."""
     a, b = a.float(), b.float()
-    h = torch.zeros_like(a[:, 0])
+    h = torch.zeros_like(a[:, 0]) if h0 is None else h0.float()
     out = torch.empty_like(a)
     for t in range(a.shape[1]):
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def rglru_gates(r_pre: torch.Tensor, i_pre: torch.Tensor, xc: torch.Tensor,
+                lam: torch.Tensor):
+    """The RG-LRU's (a, gated input), both fp32, from the projections
+    r_pre = xc·Wr and i_pre = xc·Wi, the conv output xc and lam
+    (``repro.models.rglru._gates``): a = exp(-8·softplus(lam)·sigmoid(r_pre))
+    and sqrt(clamp(1 - a·a, 1e-12))·(sigmoid(i_pre)·xc)."""
+    r = torch.sigmoid(r_pre.float())
+    i = torch.sigmoid(i_pre.float())
+    a = torch.exp(-RG_C * F.softplus(lam) * r)
+    gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (
+        i * xc.float())
+    return a, gated_in
+
+
+def rglru_gated_scan_ref(r_pre: torch.Tensor, i_pre: torch.Tensor,
+                         xc: torch.Tensor, gate_pre: torch.Tensor,
+                         lam: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                         state_out: Optional[torch.Tensor] = None):
+    """The RG-LRU of one recurrent layer, the function the gated CUDA kernel
+    computes: ``rglru_gates``, the scan from ``h0`` (zero when None) and
+    y = h.to(dtype)·gelu_tanh(gate_pre), the tail of
+    ``repro.models.rglru.rglru_forward``. r_pre, i_pre, xc, gate_pre:
+    (B, S, W) of one dtype; lam fp32 (W,); h0 fp32 (B, W) or None. Returns
+    (y in the inputs' dtype, the final state h[:, -1] as a contiguous fp32
+    (B, W) tensor); the state is copied into ``state_out`` when given (which
+    may be ``h0``)."""
+    a, gated_in = rglru_gates(r_pre, i_pre, xc, lam)
+    h = rglru_scan_ref(a, gated_in, h0)
+    y = h.to(xc.dtype) * F.gelu(gate_pre, approximate="tanh")
+    if state_out is None:
+        return y, h[:, -1].contiguous()
+    return y, state_out.copy_(h[:, -1])

@@ -36,11 +36,12 @@ from repro_torch.models.config import ArchConfig
 class ModelOptions:
     """Execution options orthogonal to the architecture.
 
-    ``use_kernels`` routes prefill attention and the prefill SSD and RG-LRU
-    scans through the hand-written kernels (``kernels.ops``); unlike the
-    reference it defaults to True, because the kernels are what the port
-    serves with. ``remat`` is kept for parity with the reference's options;
-    the port has no training step, so it changes nothing here."""
+    ``use_kernels`` routes prefill attention, the prefill SSD scan and the
+    RG-LRU of prefill and decode through the hand-written kernels
+    (``kernels.ops``); unlike the reference it defaults to True, because
+    the kernels are what the port serves with. ``remat`` is kept for parity
+    with the reference's options; the port has no training step, so it
+    changes nothing here."""
 
     use_kernels: bool = True
     remat: bool = True
@@ -139,7 +140,8 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
     if mixer == "ssd":
         out, cache = ssm.ssd_step(params["mixer"], h, cache, cfg)
     elif mixer == "rglru":
-        out, cache = rglru.rglru_step(params["mixer"], h, cache, cfg)
+        out, cache = rglru.rglru_step(params["mixer"], h, cache, cfg,
+                                      use_kernel=opts.use_kernels)
     else:
         # a windowed mixer's cache is a ring of L <= window slots, which
         # holds exactly the last L positions

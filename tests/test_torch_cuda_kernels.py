@@ -242,15 +242,39 @@ def test_reduced_recurrentgemma_prefill_kernels_match_plain(cuda):
                          device=cuda)
     toks = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 96)), device=cuda)        # past the window
-    before = (rg.rglru_scan.launches, fa.flash_attention.launches)
+    counters = (rg.rglru_gated_scan, rg.rglru_scan, fa.flash_attention)
+    before = [fn.launches for fn in counters]
     with torch.no_grad():
         lk, ck = M.prefill(params, {"tokens": toks}, cfg,
                            M.ModelOptions(use_kernels=True), 128)
         lp, cp = M.prefill(params, {"tokens": toks}, cfg,
                            M.ModelOptions(use_kernels=False), 128)
-    assert (rg.rglru_scan.launches, fa.flash_attention.launches) == (
-        before[0] + 2, before[1] + 1)
+    # one fused RG-LRU launch per recurrent layer (2), one flash launch per
+    # local-attention layer (1); the scan-only kernel is not on this path
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [2, 0, 1]
     torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+    for got, want in zip(ck, cp):
+        for name in got:
+            torch.testing.assert_close(got[name], want[name], atol=1e-4,
+                                       rtol=1e-4)
+
+    # decode steps: one fused launch per recurrent layer and step, the
+    # state updated in place in the cache's own buffer
+    tok = lk.argmax(-1)
+    states = [c["h"] for c in ck if "h" in c]
+    before = rg.rglru_gated_scan.launches
+    with torch.no_grad():
+        for i in range(3):
+            pos = 96 + i
+            lk, ck = M.decode_step(params, tok, pos, ck, cfg,
+                                   M.ModelOptions(use_kernels=True))
+            lp, cp = M.decode_step(params, tok, pos, cp, cfg,
+                                   M.ModelOptions(use_kernels=False))
+            torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+            tok = lk.argmax(-1)
+    assert rg.rglru_gated_scan.launches == before + 2 * 3
+    assert all(c["h"] is h for c, h in zip([c for c in ck if "h" in c],
+                                           states))
     for got, want in zip(ck, cp):
         for name in got:
             torch.testing.assert_close(got[name], want[name], atol=1e-4,
@@ -313,3 +337,80 @@ def test_rglru_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError):
             rg.rglru_scan(*args)
     assert rg.rglru_scan.launches == before
+
+
+# ---------------- RG-LRU, the fused gates-and-scan form ----------------
+
+GATED_SHAPES = [
+    # B, S, W, with h0
+    (1, 32, 4096, False),                  # recurrentgemma-9b prefill
+    (8, 1, 4096, True),                    # decode of 8 slots
+    (2, 37, 300, False),                   # ragged
+    (1, 2048, 4096, False),                # long
+    (3, 100, 302, True),                   # 8-step chunks, W % 4 = 2
+    (1, 5, 7, True),                       # odd W: one channel a thread
+]
+
+
+def _gated_inputs(shape, dtype, device, seed=0):
+    """r_pre, i_pre, xc, gate_pre ~ N(0, 1) in ``dtype``, lam as
+    ``init_rglru`` draws it, h0 ~ N(0, 1) fp32 (or None)."""
+    B, S, W, with_h0 = shape
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32
+                                    ).to(device=device, dtype=dtype)
+    u = rng.uniform(0.9 ** 2, 0.999 ** 2, W)
+    lam = torch.as_tensor(np.log(np.expm1(-np.log(u) / 16)),
+                          dtype=torch.float32, device=device)
+    h0 = mk(B, W).float() if with_h0 else None
+    return mk(B, S, W), mk(B, S, W), mk(B, S, W), mk(B, S, W), lam, h0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", GATED_SHAPES)
+def test_rglru_gated_kernel_matches_plain_version(cuda, shape, dtype):
+    *ins, lam, h0 = _gated_inputs(shape, dtype, cuda)
+    y, h = rg.rglru_gated_scan(*ins, lam, h0)
+    want_y, want_h = ref.rglru_gated_scan_ref(*ins, lam, h0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == ins[2].shape
+    assert h.dtype == torch.float32 and h.shape == (shape[0], shape[2])
+    assert bool(y.isfinite().all()) and bool(h.isfinite().all())
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), want_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, want_h, atol=TOL[torch.float32],
+                               rtol=TOL[torch.float32])
+
+
+def test_rglru_gated_kernel_updates_state_in_place(cuda):
+    *ins, lam, h0 = _gated_inputs((8, 1, 4096, True), torch.float32, cuda,
+                                  seed=3)
+    want_y, want_h = ref.rglru_gated_scan_ref(*ins, lam, h0.clone())
+    ptr = h0.data_ptr()
+    before = rg.rglru_gated_scan.launches
+    y, h = ops.rglru_gated_scan(*ins, lam, h0=h0, state_out=h0)
+    torch.cuda.synchronize()
+    assert h is h0 and h0.data_ptr() == ptr
+    assert rg.rglru_gated_scan.launches == before + 1
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h0, want_h, atol=1e-4, rtol=1e-4)
+
+
+def test_rglru_gated_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    *ins, lam, h0 = _gated_inputs((2, 5, 64, True), torch.float32, cuda)
+    r, i, xc, g = ins
+    bad = [
+        ((r.half(), i.half(), xc.half(), g.half(), lam), {}),     # dtype
+        ((r, i, xc, g.bfloat16(), lam), {}),                      # mixed
+        ((r.transpose(1, 2), i, xc, g, lam), {}),                 # layout
+        ((r, i, xc, g[:, :3].contiguous(), lam), {}),             # shapes
+        ((r, i, xc, g, lam.bfloat16()), {}),                      # lam
+        ((r, i, xc, g, lam), {"h0": h0[:1].contiguous()}),        # h0 shape
+        ((r, i, xc, g, lam), {"h0": h0.cpu()}),                   # device
+        ((r.cpu(), i.cpu(), xc.cpu(), g.cpu(), lam.cpu()), {}),   # CPU
+    ]
+    before = rg.rglru_gated_scan.launches
+    for args, kw in bad:
+        with pytest.raises(ValueError):
+            rg.rglru_gated_scan(*args, **kw)
+    assert rg.rglru_gated_scan.launches == before

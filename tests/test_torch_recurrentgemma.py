@@ -151,6 +151,51 @@ def test_rglru_step_matches_reference(block):
                                    np.asarray(jcache[name]), **TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_step_kernel_path_matches_reference(block, dtype):
+    """``rglru_step(use_kernel=True)`` (on the CPU: the fused kernel's plain
+    version) against the reference's ``rglru_step``; the state is updated in
+    place, in the cache's own fp32 buffer."""
+    cfg, jp, tp = block
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jp = {k: v if k == "lam" else v.astype(jdt) for k, v in jp.items()}
+    tp = {k: v if k == "lam" else v.to(tdt) for k, v in tp.items()}
+    rng = np.random.default_rng(12)
+    jcache = JR.rglru_init_cache(cfg, 3, jdt)
+    cache = rglru.rglru_init_cache(cfg, 3, tdt, "cpu")
+    state = cache["h"]
+    tol = TOL if dtype == "float32" else dict(atol=2e-2, rtol=2e-2)
+    for _ in range(3):
+        x = rng.standard_normal((3, 1, cfg.d_model)).astype(np.float32)
+        jy, jcache = JR.rglru_step(jp, jnp.asarray(x).astype(jdt), jcache, cfg)
+        y, cache = rglru.rglru_step(tp, torch.from_numpy(x).to(tdt), cache,
+                                    cfg, use_kernel=True)
+        assert y.dtype == tdt and cache["h"] is state
+        assert state.dtype == torch.float32
+        np.testing.assert_allclose(y.float().numpy(),
+                                   np.asarray(jy.astype(jnp.float32)), **tol)
+    for name in ("h", "conv"):
+        np.testing.assert_allclose(
+            cache[name].float().numpy(),
+            np.asarray(jcache[name].astype(jnp.float32)), **tol)
+
+
+@pytest.mark.parametrize("S", [7, 40])
+def test_rglru_forward_kernel_path_matches_plain(block, S):
+    """The fused call and the plain ops give the same block output and
+    decode cache (fp32, 2e-5)."""
+    cfg, _, tp = block
+    x = torch.from_numpy(_x(cfg, (2, S), seed=20 + S))
+    out_k, cache_k = rglru.rglru_forward(tp, x, cfg, use_kernel=True,
+                                         want_cache=True)
+    out_p, cache_p = rglru.rglru_forward(tp, x, cfg, use_kernel=False,
+                                         want_cache=True)
+    torch.testing.assert_close(out_k, out_p, **TOL)
+    assert cache_k["h"].is_contiguous() and cache_k["h"].dtype == torch.float32
+    for name in ("h", "conv"):
+        torch.testing.assert_close(cache_k[name], cache_p[name], **TOL)
+
+
 def test_rglru_decode_matches_forward(block):
     """Mirrors test_model_parts.py::test_rglru_decode_matches_forward:
     step-by-step rglru_step == full-sequence rglru_forward, at 2e-4."""
@@ -401,6 +446,56 @@ def test_prefill_and_per_row_decode_match_reference(weights, use_kernels):
             np.testing.assert_allclose(
                 t.numpy(), np.asarray(jcache["scan"][layer][name][0]), **TOL)
     assert cache[0]["h"].dtype == torch.float32
+
+
+def test_prefill_and_decode_kernels_match_plain(weights, monkeypatch):
+    """A reduced recurrentgemma prefill into two slots and five decode steps
+    with ``use_kernels=True`` (the fused RG-LRU in prefill and decode; the
+    plain versions on the CPU) against ``use_kernels=False``: logits, greedy
+    tokens and every cache row, fp32 at 2e-5. Every tensor the model hands
+    the fused call is contiguous, as the CUDA kernel requires."""
+    from repro_torch.kernels import ops
+    _, _, cfg, params, _ = weights
+    calls = []
+    fused = ops.rglru_gated_scan
+
+    def checked(*args, **kw):
+        calls.append(all(t.is_contiguous() for t in (*args, *kw.values())
+                         if t is not None))
+        return fused(*args, **kw)
+
+    monkeypatch.setattr(ops, "rglru_gated_scan", checked)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (20, 70)]
+    runs = {}
+    for use_kernels in (True, False):
+        opts = M.ModelOptions(use_kernels=use_kernels)
+        cache = M.init_cache(cfg, 2, CACHE_LEN, torch.float32, opts,
+                             device="cpu")
+        logits = []
+        for slot, toks in enumerate(prompts):
+            lg, cache = steps.prefill_into_slot_step(
+                params, cache, {"tokens": torch.from_numpy(toks[None])},
+                slot, cfg, opts, CACHE_LEN)
+            logits.append(lg)
+        tok = torch.stack(logits).argmax(-1)
+        pos = torch.tensor([len(p) for p in prompts])
+        for _ in range(5):
+            lg, cache = steps.decode_step(params, cache,
+                                          {"token": tok, "pos": pos}, cfg,
+                                          opts)
+            logits.append(lg)
+            tok, pos = lg.argmax(-1), pos + 1
+        runs[use_kernels] = (logits, cache)
+    (lk, ck), (lp, cp) = runs[True], runs[False]
+    n_rglru = sum(1 for m, _ in cfg.layer_kinds if m == "rglru")
+    assert len(calls) == n_rglru * (2 + 5) and all(calls)
+    for got, want in zip(lk, lp):
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+    for got, want in zip(ck, cp):
+        for name in got:
+            torch.testing.assert_close(got[name], want[name], **TOL)
 
 
 def test_prefill_into_slot_matches_batched_prefill(weights):
