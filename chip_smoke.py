@@ -16,13 +16,19 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    recurrentgemma-9b's prefill shapes (head_dim 128 MHA; head_dim 256 MQA
    with a window), ragged shapes (one at head_dim 256 where the window
    bites), T > S shapes with a window, a T < S shape (whose blind rows
-   must be mean(v)) and two 1024-token shapes that cross 32 KV tiles, one
+   must be mean(v)), two 1024-token shapes that cross 32 KV tiles, one
    causal at head_dim 128 and one windowed at head_dim 256 (bf16 there runs
-   on the tensor cores). At both serving paths' shapes, time the kernel
-   issued back to back (CUDA events), its device time alone (profiler),
-   its host enqueue time (host clock, no synchronise), the plain version and
+   on the tensor cores), the attention family's prefill shapes (yi-9b's
+   8-way, nemotron-4-15b's 6-way and internvl2-1b's 7-way GQA) and head_dim
+   80: hubert-xlarge's non-causal (1, 500, 16, 80, 16, 500), whose last KV
+   tile holds 20 keys, a whole-tile encoder shape, a ragged causal GQA one
+   and one with T > S and a window. At each model path's shape (olmo-1b,
+   recurrentgemma-9b, yi-9b, nemotron-4-15b, internvl2-1b and
+   hubert-xlarge), time the kernel issued back to back
+   (CUDA events), its device time alone (profiler), its host enqueue time
+   (host clock, no synchronise), the plain version and
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
-   it).
+   it), and print the bound.
 4. Hold the SSD kernels against their plain version: the reference's
    kernel test grid (g = 2 and the production-like state among it), the
    serving shape (one 128-chunk, 80 heads), a multi-chunk multi-batch shape
@@ -48,29 +54,39 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    Tolerances for every kernel: fp32 1e-4 (summation order differs on the
    card), bf16 2e-2 (both sides round once to bf16), each absolute plus
    relative to the plain value.
-5. Full-width olmo-1b, mamba2-2.7b and recurrentgemma-9b in fp32, weights
-   from a seeded generator on the card: prefill a 32-token prompt with and
-   without the kernels, compare the logits (within 1e-3: fp32 logits of
-   unit scale after 16, 64 or 38 layers whose sums run in another order on
-   each path), and decode 8 greedy tokens from each; the tokens must match.
+5. Full-width olmo-1b, mamba2-2.7b, recurrentgemma-9b, yi-9b,
+   nemotron-4-15b and internvl2-1b in fp32, weights from a seeded generator
+   on the card, one model on the card at a time: prefill a 32-token prompt
+   (after 256 patch embeddings for internvl2-1b) with and without the
+   kernels, compare the logits (within 1e-3: fp32 logits of unit scale
+   after 16-64 layers whose sums run in another order on each path), and
+   decode 8 greedy tokens from each; the tokens must match. yi-9b once more
+   with ``window_override=128`` on a 300-token prompt, so that the window
+   masks in prefill and decode: the kernels with a ring cache of 128 slots
+   against the plain path over the full cache with the window mask.
+   hubert-xlarge's ``forward_hidden`` over (1, 500, 1280) frames, the
+   hidden states within 1e-3. Each path's flash launches, counted from 0,
+   must be its attention layers x its kernel-path prefills (6) or
+   forwards (1).
 6. The main paths: ``serve(arch, reduced=False, ...)`` with the continuous-
    batching engine for each model in turn. Every kernel's launch count is
    set to 0 just before each run and read just after; each must equal (the
    served config's layers of the kernel's kind) x (prefills, and for the
    fused RG-LRU also the decode steps), the engine's own counts with the
-   warmup's: olmo-1b launches only the flash kernel, mamba2-2.7b only the
-   SSD kernel, and recurrentgemma-9b the fused RG-LRU kernel in its 26
-   recurrent layers in every prefill and decode step and the flash kernel
-   in its 12 local-attention layers in every prefill; the scan-only RG-LRU
-   kernel is on no served path. The H100 fleet is planned again from each
+   warmup's: olmo-1b and yi-9b launch only the flash kernel (16 and 48
+   layers), mamba2-2.7b only the SSD kernel, and recurrentgemma-9b the
+   fused RG-LRU kernel in its 26 recurrent layers in every prefill and
+   decode step and the flash kernel in its 12 local-attention layers in
+   every prefill; the scan-only RG-LRU kernel is on no served path. The H100 fleet is planned again from each
    run's measured rates (every plan is validated).
 7. Profile one drain of 8 requests on each model with ``torch.profiler``:
    wall time with and without tracing, the device's busy time and idle
    share, and device time by kernel (each port kernel's per wrapper call,
    summed over the device kernels it launches; the fused RG-LRU kernel is
    named ``rglru_gated_scan_kernel`` in the trace).
-8. Print ``{"kernels": [...]}`` on one line, then the last line
-   ``{"ok": true, "device": {...}}``.
+8. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
+   its served paths; ``launches_by_path`` also holds the phase-5 paths),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout, so fp32 matrix products are full fp32.
 """
@@ -95,6 +111,10 @@ FP32_TOL, BF16_TOL = 1e-4, 2e-2
 LOGIT_TOL = 1e-3                # fp32 logits of unit scale after 16-64 layers
 MAIN_SHAPE = (1, 32, 16, 128, 16, 32, True, 0)   # B, S, H, hd, K, T, causal, window
 RG_FLASH_SHAPE = (1, 32, 16, 256, 1, 32, True, 2048)  # recurrentgemma-9b prefill
+YI_FLASH_SHAPE = (1, 32, 32, 128, 4, 32, True, 0)     # yi-9b prefill, 8-way GQA
+NEMOTRON_FLASH_SHAPE = (1, 32, 48, 128, 8, 32, True, 0)   # 6-way GQA
+INTERNVL_FLASH_SHAPE = (1, 288, 14, 64, 2, 288, True, 0)  # 256 patches + 32
+HUBERT_FLASH_SHAPE = (1, 500, 16, 80, 16, 500, False, 0)  # hubert-xlarge, hd 80
 SHAPES = [
     (2, 128, 4, 64, 2, 128, True, 0),      # tests/test_kernels.py grid
     (1, 256, 4, 64, 1, 256, True, 64),
@@ -110,7 +130,20 @@ SHAPES = [
     (2, 40, 4, 256, 1, 100, True, 48),     # hd 256, T > S with a window
     (1, 1024, 16, 128, 16, 1024, True, 0),   # many KV tiles, causal skipping
     (1, 1024, 16, 256, 1, 1024, True, 256),  # many KV tiles, window skipping
+    YI_FLASH_SHAPE,                        # yi-9b prefill of 32 tokens
+    NEMOTRON_FLASH_SHAPE,                  # nemotron-4-15b prefill
+    INTERNVL_FLASH_SHAPE,                  # internvl2-1b prefill, 7-way GQA
+    HUBERT_FLASH_SHAPE,                    # encoder, last KV tile of 20 keys
+    (1, 128, 2, 80, 2, 128, False, 0),     # hd 80, encoder, whole tiles
+    (1, 300, 16, 80, 4, 300, True, 0),     # hd 80, ragged causal GQA
+    (2, 37, 4, 80, 2, 90, True, 24),       # hd 80, T > S with a window
 ]
+# the flash kernel's timed shapes: each model path's prefill or forward;
+# "hd256" (recurrentgemma-9b) keeps its key of earlier runs
+FLASH_TIMED = {"olmo-1b": MAIN_SHAPE, "hd256": RG_FLASH_SHAPE,
+               "yi-9b": YI_FLASH_SHAPE, "nemotron-4-15b": NEMOTRON_FLASH_SHAPE,
+               "internvl2-1b": INTERNVL_FLASH_SHAPE,
+               "hubert-xlarge hd80": HUBERT_FLASH_SHAPE}
 # b, s, h, p, g, n, chunk
 SSD_MAIN_SHAPE = (1, 128, 80, 64, 1, 128, 128)   # mamba2-2.7b prefill, padded
 SSD_MANY_CHUNKS = (1, 2048, 16, 64, 2, 128, 128)  # 16 chunks: all four kernels
@@ -154,7 +187,12 @@ KERNEL_MIXERS = {"flash_attention": (("attn", "attn_window"), False),
                  "rglru_gated_scan": (("rglru",), True)}
 # each served model and the kernels its main path runs
 SERVED = {"olmo-1b": ["flash_attention"], "mamba2-2.7b": ["ssd_scan"],
-          "recurrentgemma-9b": ["rglru_gated_scan", "flash_attention"]}
+          "recurrentgemma-9b": ["rglru_gated_scan", "flash_attention"],
+          "yi-9b": ["flash_attention"]}
+# phase 5 beyond the served models: full-width paths the launcher does not
+# serve (nemotron-4-15b could be; the others need frames or patches)
+YI_WINDOW = 128                 # window_override of yi-9b's long-prompt check
+YI_WINDOW_PROMPT = 300
 
 
 def fail(msg: str) -> None:
@@ -309,9 +347,9 @@ def check_flash(torch, fa, ref) -> dict:
                 if blind_err > FP32_TOL:
                     fail(f"T < S rows are not mean(v): {blind_err:.3e}")
 
-    # time at each serving path's shape, fp32 (the dtype it serves in)
+    # time at each path's shape, fp32 (the dtype it serves in)
     times = {shape: time_flash(torch, fa, ref, shape)
-             for shape in (MAIN_SHAPE, RG_FLASH_SHAPE)}
+             for shape in FLASH_TIMED.values()}
     rec = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:70",
@@ -319,36 +357,40 @@ def check_flash(torch, fa, ref) -> dict:
            "max_abs_err": worst[(MAIN_SHAPE, "torch.float32")],
            "max_abs_err_all_shapes": max(worst.values()),
            **times[MAIN_SHAPE]}
-    rec["hd256"] = {"shape": list(RG_FLASH_SHAPE[:6]),
-                    "window": RG_FLASH_SHAPE[7], "dtype": "float32",
-                    "max_abs_err": worst[(RG_FLASH_SHAPE, "torch.float32")],
-                    **times[RG_FLASH_SHAPE]}
+    for key, shape in FLASH_TIMED.items():
+        if shape != MAIN_SHAPE:
+            rec[key] = {"shape": list(shape[:6]), "causal": shape[6],
+                        "window": shape[7], "dtype": "float32",
+                        "max_abs_err": worst[(shape, "torch.float32")],
+                        "max_abs_err_bf16": worst[(shape, "torch.bfloat16")],
+                        **times[shape]}
     return rec
 
 
 def time_flash(torch, fa, ref, shape) -> dict:
     """The kernel, its plain version and ``scaled_dot_product_attention`` (a
-    yardstick only, with k and v expanded to the query heads) at one causal
-    fp32 shape, by CUDA events."""
+    yardstick only, with each KV head expanded onto its query heads) at one
+    fp32 shape whose window, if any, is >= T, by CUDA events."""
     B, S, H, hd, K, T, causal, window = shape
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v = (torch.randn(s, generator=gen, device="cuda")
                for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
-    run = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
+    run = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
     ms = cuda_ms(torch, run)
     host_ms = host_enqueue_ms(torch, run)
     dev_ms, _ = device_ms(torch, run, "flash_attention_kernel")
     plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(
-        q, k, v, causal=True, window=window))
+        q, k, v, causal=causal, window=window))
     qt = q.transpose(1, 2)
-    kt, vt = (x.transpose(1, 2).expand(B, H, T, hd) for x in (k, v))
+    # (B, K, T, hd) -> (B, H, T, hd): a view for MHA and MQA, a copy for GQA
+    kt, vt = (x.transpose(1, 2)[:, :, None].expand(B, K, H // K, T, hd)
+              .reshape(B, H, T, hd) for x in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True))
-    lib_err = (sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
-               - run()).abs().max().item()      # the window is >= T here
+    library = lambda: sdpa(qt, kt, vt, is_causal=causal)
+    library_ms = cuda_ms(torch, library)
+    lib_err = (library().transpose(1, 2) - run()).abs().max().item()
     bound_ms, bound_by = attention_bound_ms(shape, "float32")
-    sdpa_host_ms = host_enqueue_ms(torch, lambda: sdpa(qt, kt, vt,
-                                                       is_causal=True))
+    sdpa_host_ms = host_enqueue_ms(torch, library)
     print(f"flash_attention {shape} float32: kernel {ms:.5f} ms back to back"
           f" (device {dev_ms:.6f} ms, host enqueue {host_ms:.6f} ms), plain "
           f"{plain_ms:.5f} ms, sdpa {library_ms:.5f} ms back to back (host "
@@ -593,8 +635,28 @@ def _params(torch, cfg):
                        torch.float32, device="cuda")
 
 
-def check_full_model(torch, arch: str) -> None:
-    """Phase 5: a full-width model, kernel path against the plain path."""
+def _prompt(torch, cfg, prompt_len: int) -> dict:
+    """One request's prefill inputs on the card: ``prompt_len`` tokens from
+    a seeded generator, after ``num_patches`` patch embeddings for a vision
+    model (both from ``data.pipeline.make_batch``)."""
+    if cfg.frontend == "vision":
+        from repro_torch.data.pipeline import InputShape, make_batch
+        return make_batch(cfg, InputShape(
+            "smoke", cfg.num_patches + prompt_len, 1, "prefill"), seed=0)
+    return {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, prompt_len)), device="cuda")}
+
+
+def check_full_model(torch, arch: str, fa, *, prompt_len: int = 32,
+                     cache_len: int = 128, window: int = 0) -> int:
+    """Phase 5: a full-width decoder, the kernel path against the plain
+    path: prefill one prompt (with its patch prefix for a vision model),
+    compare the logits, decode 8 greedy tokens from each (they must match)
+    and time a prefill and a decode step. With ``window > 0`` both paths
+    run ``window_override=window``, the kernel path from a ring cache of
+    ``window`` slots and the plain one from the full cache masked to the
+    window. Returns the flash kernel's launches in the kernel path's 6
+    prefills (counted from 0), which must be the attention layers x 6."""
     from repro_torch.models import model as M
     from repro_torch.models import steps
     from repro_torch.models.config import get_config
@@ -606,52 +668,110 @@ def check_full_model(torch, arch: str) -> None:
     n_params = sum(p.numel() for p in _leaves(params))
     print(f"{arch} full width: {n_params} parameters (fp32) initialised in "
           f"{time.perf_counter() - t0:.2f} s")
-    toks = torch.as_tensor(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (1, 32)), device="cuda")
+    batch = _prompt(torch, cfg, prompt_len)
+    S = prompt_len + (cfg.num_patches if cfg.frontend == "vision" else 0)
+    label = f"{arch} prefill(1x{S})" + (
+        f" window_override={window}" if window else "")
     results = {}
     for use_kernels in (True, False):
-        opts = M.ModelOptions(use_kernels=use_kernels)
-        logits, cache = steps.prefill_step(params, {"tokens": toks}, cfg,
-                                           opts, 128)
+        opts = M.ModelOptions(use_kernels=use_kernels, window_override=window,
+                              ring_cache=use_kernels and window > 0)
+        if use_kernels:
+            fa.flash_attention.launches = 0
+        logits, cache = steps.prefill_step(params, batch, cfg, opts,
+                                           cache_len)
         first = logits
         tokens = []
         tok = torch.argmax(logits, -1)
         for i in range(8):
             tokens.append(int(tok[0]))
             logits, cache = steps.decode_step(
-                params, cache, {"token": tok, "pos": 32 + i}, cfg, opts)
+                params, cache, {"token": tok, "pos": S + i}, cfg, opts)
             tok = torch.argmax(logits, -1)
         torch.cuda.synchronize()
         # time one prefill and one decode step (host clock, synchronised)
         t0 = time.perf_counter()
         for _ in range(5):
-            steps.prefill_step(params, {"tokens": toks}, cfg, opts, 128)
+            steps.prefill_step(params, batch, cfg, opts, cache_len)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) / 5 * 1e3
+        if use_kernels:
+            launches = fa.flash_attention.launches
         t0 = time.perf_counter()
         for _ in range(5):
-            steps.decode_step(params, cache, {"token": tok, "pos": 40}, cfg,
-                              opts)
+            steps.decode_step(params, cache, {"token": tok, "pos": S + 8},
+                              cfg, opts)
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) / 5 * 1e3
         results[use_kernels] = (first, tokens)
-        print(f"{arch} prefill(1x32) use_kernels={use_kernels}: "
-              f"{prefill_ms:.3f} ms; decode step (B=1): {decode_ms:.3f} ms; "
-              f"greedy tokens {tokens}")
+        cache_rows = cache[0]["k"].shape[1] if "k" in cache[0] else None
+        print(f"{label} use_kernels={use_kernels}: {prefill_ms:.3f} ms; "
+              f"decode step (B=1): {decode_ms:.3f} ms; greedy tokens "
+              f"{tokens}" + (f"; cache rows {cache_rows}" if window else ""))
     (lk, tk), (lp, tp) = results[True], results[False]
     if lk.shape != (1, cfg.vocab_size) or not torch.isfinite(lk).all():
-        fail(f"{arch} prefill logits: shape {tuple(lk.shape)} or non-finite "
-             "values")
+        fail(f"{label} logits: shape {tuple(lk.shape)} or non-finite values")
     diff = (lk - lp).abs().max().item()
-    print(f"{arch} prefill logits, kernels vs plain: max |diff| {diff:.3e} "
+    print(f"{label} logits, kernels vs plain: max |diff| {diff:.3e} "
           f"(tol {LOGIT_TOL})")
     if diff > LOGIT_TOL:
-        fail(f"{arch} prefill logits differ by {diff:.3e}")
+        fail(f"{label} logits differ by {diff:.3e}")
     if tk != tp:
-        fail(f"{arch} greedy tokens differ: kernels {tk} vs plain {tp}")
+        fail(f"{label} greedy tokens differ: kernels {tk} vs plain {tp}")
+    want = expected_launches(cfg, "flash_attention", 6, 0)
+    if launches != want:
+        fail(f"{label}: flash launched {launches} times in 6 prefills; "
+             f"expected {want}")
     del params, results, cache, logits, first
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+def check_encoder(torch, arch: str, fa, frames: int = 500) -> int:
+    """Phase 5, an encoder: ``forward_hidden`` over (1, frames, d_model)
+    frame embeddings from ``data.pipeline.make_batch`` with the kernel
+    against the plain path, the hidden states within ``LOGIT_TOL``, and
+    each path timed. Returns the flash kernel's launches in one forward
+    (counted from 0), which must be the attention layers."""
+    from repro_torch.data.pipeline import InputShape, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+
+    cfg = get_config(arch)
+    params = _params(torch, cfg)
+    batch = make_batch(cfg, InputShape("smoke", frames, 1, "prefill"), seed=0)
+    hidden = {}
+    for use_kernels in (True, False):
+        opts = M.ModelOptions(use_kernels=use_kernels)
+        fa.flash_attention.launches = 0
+        with torch.no_grad():
+            hidden[use_kernels] = M.forward_hidden(params, batch, cfg, opts)
+            torch.cuda.synchronize()
+            if use_kernels:
+                launches = fa.flash_attention.launches
+            t0 = time.perf_counter()
+            for _ in range(5):
+                M.forward_hidden(params, batch, cfg, opts)
+            torch.cuda.synchronize()
+        print(f"{arch} forward_hidden(1x{frames}) use_kernels={use_kernels}: "
+              f"{(time.perf_counter() - t0) / 5 * 1e3:.3f} ms")
+    hk, hp = hidden[True], hidden[False]
+    if hk.shape != (1, frames, cfg.d_model) or not torch.isfinite(hk).all():
+        fail(f"{arch} hidden states: shape {tuple(hk.shape)} or non-finite")
+    diff = (hk - hp).abs().max().item()
+    print(f"{arch} hidden states, kernels vs plain: max |diff| {diff:.3e} "
+          f"(tol {LOGIT_TOL})")
+    if diff > LOGIT_TOL:
+        fail(f"{arch} hidden states differ by {diff:.3e}")
+    want = expected_launches(cfg, "flash_attention", 1, 0)
+    if launches != want:
+        fail(f"{arch}: flash launched {launches} times in one forward; "
+             f"expected {want}")
+    del params, hidden, hk, hp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def expected_launches(cfg, kernel: str, prefills: int,
@@ -715,6 +835,7 @@ def serve_path(torch, arch: str, wrappers: dict) -> dict:
     finally:
         serve_mod.ContinuousBatchingEngine = plain_cls
     ran = engine_cls.built[-1].totals()
+    engine_cls.built.clear()             # free the served model's weights
     print(json.dumps(report, sort_keys=True))
     print(f"serve {arch} wall time {wall:.2f} s; launches {counts}; engine "
           f"ran {ran['prefills']} prefills and {ran['decode_steps']} decode "
@@ -748,6 +869,7 @@ def serve_path(torch, arch: str, wrappers: dict) -> dict:
         fail(f"{arch}: packed plan costs more than per-stream")
     print(f"{arch} fleet plans (re-planned, validated): " + json.dumps(
         {s: (p["hourly_cost"], p["instances"]) for s, p in plans.items()}))
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
 
@@ -882,14 +1004,27 @@ def main() -> None:
                "rglru_scan": check_rglru(torch, rg, ref),
                "rglru_gated_scan": check_rglru_gated(torch, rg, ref)}
 
-    # 5) full-width models, kernel path against the plain path
+    # 5) full-width models, kernel path against the plain path; the flash
+    # launches of the paths no served model runs are kept by path
+    model_paths = {}
     for arch in SERVED:
-        check_full_model(torch, arch)
+        check_full_model(torch, arch, fa)
+    for arch in ("nemotron-4-15b", "internvl2-1b"):
+        model_paths[f"{arch} prefill x6 (phase 5)"] = check_full_model(
+            torch, arch, fa, cache_len=512)
+    model_paths[f"yi-9b window_override={YI_WINDOW} ring prefill x6 "
+                "(phase 5)"] = check_full_model(
+        torch, "yi-9b", fa, prompt_len=YI_WINDOW_PROMPT, cache_len=512,
+        window=YI_WINDOW)
+    model_paths["hubert-xlarge forward_hidden (phase 5)"] = check_encoder(
+        torch, "hubert-xlarge", fa)
 
     # 6) the main paths: serve, then plan from the measured rates; a kernel
-    # on two paths records the sum of its launches and each path's count
+    # on two paths records the sum of its served launches and each path's
+    # count, the phase-5 paths' too (not in the sum)
     for rec in records.values():
         rec["launches"], rec["launches_by_path"] = 0, {}
+    records["flash_attention"]["launches_by_path"].update(model_paths)
     for arch in SERVED:
         counts = serve_path(torch, arch, wrappers)
         for name, n in counts.items():

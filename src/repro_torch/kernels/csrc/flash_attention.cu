@@ -39,29 +39,37 @@
 //     query rows of one (b, h), one warp a row and one lane a key of the
 //     32-key tile: the score is four independent chains of hd/4 FMAs fed by
 //     16-byte reads (q broadcast, k rows padded by 4 floats so the 8 lanes
-//     of a read phase hit distinct banks), the row's max is a warp shuffle,
-//     and each lane then owns hd/32 output columns, each key's p a shuffle
-//     and its v one 16-byte read per four FMAs. 8 rows a block give 64
+//     of a read phase hit distinct banks: rows of 84 floats at hd 80 start
+//     the 8 lanes at banks 0, 20, 8, 28, 16, 4, 24, 12), the row's max is a
+//     warp shuffle, and each lane then owns runs of W output columns (W = 4
+//     from hd 80 up, else hd/32), each key's p a shuffle and its v one
+//     W-float read per W FMAs. At hd 80 the 20 runs of 4 leave lanes 20-31
+//     idle in p·v (they read lane 19's run, a broadcast, and store
+//     nothing), so the output stage has no branch. 8 rows a block give 64
 //     blocks at the serving shapes, half the SMs; a first version with 16
 //     rows a block and two keys a thread, 32 blocks there, ran 1.4x
 //     slower at those shapes (chip_smoke.py);
 //   - bf16 runs on the tensor cores: mma.sync.m16n8k16 with fp32
 //     accumulation, one warp per 16 query rows, 4 warps a block. p is rounded
 //     to bf16 for p·v (the softmax sums stay fp32), which the bf16 2e-2
-//     tolerance covers;
+//     tolerance covers. hd 80 is 5 k-steps of 16 and 10 output n-tiles;
+//     its rows of 88 values (44 words) put the 8 fragment rows at banks
+//     0, 12, 24, 4, 16, 28, 8, 20, distinct with their 4 columns each;
 //   - the dynamic shared-memory opt-in (needed past 48 KB) is made once per
 //     instantiation and device, not on every launch;
 //   - the 14 arguments come through ctypes packed in one int64 array,
 //     which costs the host far less than fourteen converted arguments.
-// Shared memory: fp32 4·(8·(hd+4) + 2·32·(hd+4) + 2·32·hd) bytes, 70,784 at
-// hd 128 and 140,416 at hd 256; bf16 2·(hd+8)·(64 + 4·32) bytes.
+// Shared memory: fp32 4·(8·(hd+4) + 2·32·(hd+4) + 2·32·hd) bytes, 44,672 at
+// hd 80, 70,784 at hd 128 and 140,416 at hd 256; bf16 2·(hd+8)·(64 + 4·32)
+// bytes. Head dims: 32, 64, 80, 128, 256, each a native instantiation.
 // Measured (benchmarks/port/kernel_ab.py, parent and this design in turns on
 // one H100 80GB HBM3 at 700 W, fp32, device time a call): (1,32,16,128)
 // causal 7.99 µs before, 4.00 now; (1,32,16,256) one KV head, window 2048,
 // 12.80 before, 6.43 now; (1,1024,16,128) causal 1088 before, 485 now;
-// (1,1024,16,256) window 256 2614 before, 504 now. ptxas (-v): fp32 106-112
-// registers, bf16 96-227 (227 at hd 256), 0 bytes of spill in every
-// instantiation.
+// (1,1024,16,256) window 256 2614 before, 504 now. hd 80 (chip_smoke.py, the
+// same card and limit): (1,500,16,80) non-causal 183 µs, 10% of its 19.1 µs
+// bound (operations). ptxas (-v): fp32 106-116 registers, bf16 96-227 (227
+// at hd 256), 0 bytes of spill in every instantiation.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -176,9 +184,11 @@ flash_attention_kernel_f32(const float* __restrict__ q,
                            int S, int Tk, int H, int K, int causal, int window,
                            float scale) {
   constexpr int QS = HD + kPadF;       // row stride of q_s and k_s (floats)
-  constexpr int CP = HD / 32;          // output columns of each lane
-  constexpr int W = CP < 4 ? CP : 4;   // ... in runs of W
-  constexpr int NR = CP / W;           // ... NR runs, 32·W apart
+  constexpr int W = HD >= 80 ? 4 : HD / 32;  // output columns in runs of W
+  constexpr int NRUN = HD / W;               // runs of a row
+  constexpr int NR = (NRUN + 31) / 32;       // runs of a lane, 32 apart
+  static_assert(HD % 4 == 0 && HD % W == 0 && (NRUN % 32 == 0 || NR == 1),
+                "a lane's runs must tile the row");
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);  // [kRowsF][QS]
   float* k_s = q_s + kRowsF * QS;                 // [2][kKeys][QS]
@@ -187,6 +197,9 @@ flash_attention_kernel_f32(const float* __restrict__ q,
   const int b = blockIdx.x / H, h = blockIdx.x % H, kh = h / (H / K);
   const int tid = threadIdx.x, lane = tid & 31;
   const int r = tid >> 5;   // this warp's query row within the block
+  // this lane's first output column; a lane past the last run (hd 80)
+  // shadows the last run and stores nothing
+  const int col = W * min(lane, NRUN - 1);
   const int row0 = blockIdx.y * kRowsF;
   const int nrows = min(kRowsF, S - row0);
   const int q_pos = row0 + r + (Tk - S);  // the row's position among T keys
@@ -254,7 +267,7 @@ flash_attention_kernel_f32(const float* __restrict__ q,
 #pragma unroll
     for (int key = 0; key < kKeys; ++key) {
       const float pk = __shfl_sync(kFull, p, key);
-      const float* vr = vt + key * HD + W * lane;
+      const float* vr = vt + key * HD + col;
 #pragma unroll
       for (int j = 0; j < NR; ++j) {
         float x[W];
@@ -269,10 +282,10 @@ flash_attention_kernel_f32(const float* __restrict__ q,
 
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) l += __shfl_xor_sync(kFull, l, off);
-  if (r < nrows) {
+  if (r < nrows && lane < NRUN) {
     const float inv = 1.f / (l == 0.f ? 1.f : l);
     float* orow = o + ((long long)b * S + row0 + r) * q_seq +
-                  (long long)h * HD + W * lane;
+                  (long long)h * HD + col;
 #pragma unroll
     for (int j = 0; j < NR; ++j)
 #pragma unroll
@@ -516,8 +529,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 
 // q, k, v, o: device pointers, 16-byte aligned, to contiguous (B,S,H,hd) /
 // (B,T,K,hd) / (B,T,K,hd) / (B,S,H,hd) arrays of fp32 (is_bf16 = 0) or bf16
-// (is_bf16 = 1); hd in {32, 64, 128, 256}. Launches on `stream` and returns a
-// CUDA error code (0 = launched).
+// (is_bf16 = 1); hd in {32, 64, 80, 128, 256}. Launches on `stream` and
+// returns a CUDA error code (0 = launched).
 int forward(const void* q, const void* k, const void* v, void* o, int B,
             int S, int Tk, int H, int K, int hd, int causal, int window,
             int is_bf16, void* stream) {
@@ -532,6 +545,7 @@ int forward(const void* q, const void* k, const void* v, void* o, int B,
     switch (hd) {
       case 32: return launch_bf16<32>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
       case 64: return launch_bf16<64>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
+      case 80: return launch_bf16<80>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
       case 128: return launch_bf16<128>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
       case 256: return launch_bf16<256>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
       default: return (int)cudaErrorInvalidValue;
@@ -540,6 +554,7 @@ int forward(const void* q, const void* k, const void* v, void* o, int B,
   switch (hd) {
     case 32: return launch_f32<32>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
     case 64: return launch_f32<64>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
+    case 80: return launch_f32<80>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
     case 128: return launch_f32<128>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
     case 256: return launch_f32<256>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
     default: return (int)cudaErrorInvalidValue;

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 80, 128, 256)   # each a native instantiation
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM_BYTES = 232_448            # 227 KB: the most one Hopper block may use
 KEYS_PER_TILE = 32
@@ -125,8 +125,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """softmax(q·kᵀ/√hd + mask)·v on the GPU. q: (B,S,H,hd); k, v:
     (B,T,K,hd), contiguous CUDA tensors of one dtype (fp32 or bf16) on the
-    current device, hd in {32, 64, 128, 256}, H % K == 0. Queries are the
-    last S of the T positions. Returns (B,S,H,hd) in q's dtype."""
+    current device, hd in ``HEAD_DIMS`` (launched as it is, never padded),
+    H % K == 0. Queries are the last S of the T positions. Returns
+    (B,S,H,hd) in q's dtype."""
     index, (qp, kp, vp) = _check(q, k, v)
     (B, S, H, hd), (_, T, K, _) = q.shape, k.shape
     out = torch.empty_like(q)

@@ -48,6 +48,12 @@ def serve(arch: str = "olmo-1b", *, n_streams: int = 4, fps: float = 2.0,
     # 1) serve the streams and measure throughput (fp32 weights drawn from
     # a seeded generator on the device)
     cfg = get_config(arch, reduced=reduced)
+    if cfg.frontend != "none" or cfg.is_encoder:
+        # a request carries tokens only: no patch embeddings or audio
+        # frames, and an encoder has no decode
+        raise ValueError(f"serve: {arch} (frontend {cfg.frontend!r}, "
+                         f"{'encoder' if cfg.is_encoder else 'decoder'}) "
+                         "does not serve token requests")
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, torch.float32, device=device)
     if engine == "continuous":

@@ -2,7 +2,8 @@
 
 A copy of ``repro.models.config`` (the port imports nothing from ``repro``).
 A model is a stack of blocks; each block is (mixer, ffn). The port runs
-``("attn", "mlp")``, ``("attn_window", "mlp")``, ``("rglru", "mlp")`` and
+``("attn", "mlp")`` (decoders and the bidirectional encoder, ``causal=False``),
+``("attn_window", "mlp")``, ``("rglru", "mlp")`` and
 ``("ssd", None)`` blocks; the other kinds stay in the schema so configs keep
 their reference shape. ``param_count`` is the reference's formula as it
 stands (2L + 1 norms whatever the block kinds, no SSD ``conv_b``/
@@ -85,6 +86,19 @@ class ArchConfig:
         return tuple(p[i % len(p)] for i in range(self.num_layers))
 
     @property
+    def is_encoder(self) -> bool:
+        return not self.causal
+
+    @property
+    def has_attention(self) -> bool:
+        return any(m.startswith("attn") for m, _ in self.block_pattern)
+
+    @property
+    def attention_is_quadratic(self) -> bool:
+        """True if any attention mixer has an unbounded (full) window."""
+        return any(m == "attn" for m, _ in self.block_pattern)
+
+    @property
     def d_inner(self) -> int:
         return self.ssm_expand * self.d_model
 
@@ -162,5 +176,6 @@ def _ensure_loaded() -> None:
     if _REGISTRY:
         return
     import importlib
-    for mod in ("olmo_1b", "mamba2_2_7b", "recurrentgemma_9b"):
+    for mod in ("olmo_1b", "mamba2_2_7b", "recurrentgemma_9b", "yi_9b",
+                "nemotron_4_15b", "internvl2_1b", "hubert_xlarge"):
         importlib.import_module(f"repro_torch.configs.{mod}")

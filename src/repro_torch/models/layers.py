@@ -1,7 +1,9 @@
-"""Shared layers: norms, RoPE, GQA attention (full prefill and cached
-decode), MLPs, embeddings. Plain functions over parameter dicts of tensors,
-ported from ``repro.models.layers`` with the same layouts: activations are
-(B, S, D), heads are split as (B, S, H, hd), caches are (B, S_max, K, hd).
+"""Shared layers: norms, RoPE, GQA attention (full, blockwise or flash
+prefill, causal or bidirectional, with an optional sliding window; cached
+decode over a full-length or ring cache), MLPs, embeddings. Plain functions
+over parameter dicts of tensors, ported from ``repro.models.layers`` with
+the same layouts: activations are (B, S, D), heads are split as
+(B, S, H, hd), caches are (B, S_max, K, hd).
 """
 from __future__ import annotations
 
@@ -64,15 +66,70 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], n, hd)
 
 
+def attention_blockwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        cfg: ArchConfig, *, window: int = 0,
+                        block: int = 512) -> torch.Tensor:
+    """Online-softmax attention over KV blocks of ``block`` keys, in plain
+    torch ops (the reference writes it in jnp, not Pallas): one (S, block)
+    score tile at a time, with the running max m, sum l and accumulator in
+    fp32. q: (B,S,H,hd); k, v: (B,T,K,hd) with T a multiple of the block
+    (after ``block = min(block, T)``). Queries and keys share positions
+    0..; ``cfg.causal`` and ``window`` mask as in ``attention_full``.
+    Returns (B,S,H,hd) in q's dtype."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    block = min(block, T)
+    if T % block:
+        raise ValueError(f"attention_blockwise: {T} keys are not a multiple "
+                         f"of the block {block}")
+    qg = q.reshape(B, S, K, G, hd)
+    scale = 1.0 / math.sqrt(hd)
+    q_idx = torch.arange(S, device=q.device)
+    m = torch.full((B, K, G, S, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, K, G, S, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, K, G, S, hd), dtype=torch.float32, device=q.device)
+    for j in range(T // block):
+        kj = k[:, j * block:(j + 1) * block]
+        vj = v[:, j * block:(j + 1) * block]
+        s = torch.einsum("bskgh,btkh->bkgst", qg, kj).float() * scale
+        k_idx = j * block + torch.arange(block, device=q.device)
+        mask = torch.ones((S, block), dtype=torch.bool, device=q.device)
+        if cfg.causal:
+            mask &= k_idx[None, :] <= q_idx[:, None]
+        if window > 0:
+            mask &= k_idx[None, :] > q_idx[:, None] - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bkgst,btkh->bkgsh", p.to(vj.dtype),
+                                         vj).float()
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    out = (acc / l).to(q.dtype)                           # (B,K,G,S,hd)
+    return out.reshape(B, H, S, hd).transpose(1, 2).reshape(B, S, H, hd)
+
+
 def attention_full(params, x: torch.Tensor, cfg: ArchConfig, *,
-                   window: int = 0, use_flash: bool = False):
-    """Full-sequence attention (prefill). Returns (out, (k, v)).
+                   window: int = 0, use_flash: bool = False,
+                   blockwise: int = 0, expand_kv: bool = False):
+    """Full-sequence attention (prefill, or an encoder's forward). Returns
+    (out, (k, v)).
 
     ``use_flash`` sends q, k, v through ``kernels.ops.flash_attention``:
     the hand-written CUDA kernel for CUDA tensors, its plain PyTorch
-    version for CPU tensors. Otherwise the scores are formed by einsum as
-    in the reference's jnp path. Queries sit at positions 0..S-1;
-    ``window > 0`` keeps, for query s, the keys t > s - window."""
+    version for CPU tensors. Otherwise ``blockwise > 0`` runs
+    ``attention_blockwise`` over KV blocks of that size, and else the
+    scores are formed by einsum as in the reference's jnp path. Queries sit
+    at positions 0..S-1; ``window > 0`` keeps, for query s, the keys
+    t > s - window; ``cfg.causal`` False (an encoder) masks nothing and
+    applies no RoPE. ``expand_kv`` repeats each KV head onto its
+    H / K query heads first (``repeat_interleave``, as the reference's
+    ``jnp.repeat``): the same function, and the (k, v) returned are the
+    expanded ones, as in the reference."""
     B, S, D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     positions = torch.arange(S, device=x.device)[None, :]
@@ -82,10 +139,17 @@ def attention_full(params, x: torch.Tensor, cfg: ArchConfig, *,
     if cfg.causal:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    if expand_kv and K < H:
+        k = k.repeat_interleave(H // K, dim=2)
+        v = v.repeat_interleave(H // K, dim=2)
+        K = H
 
     if use_flash:
         from repro_torch.kernels import ops as kops
         out = kops.flash_attention(q, k, v, causal=cfg.causal, window=window)
+    elif blockwise > 0:
+        out = attention_blockwise(q, k, v, cfg, window=window,
+                                  block=blockwise)
     else:
         G = H // K
         qg = q.reshape(B, S, K, G, hd)
@@ -134,18 +198,22 @@ def _decode_attend(params, q: torch.Tensor, cache_k: torch.Tensor,
 
 
 def attention_decode(params, x: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos, cfg: ArchConfig):
+                     cache_v: torch.Tensor, pos, cfg: ArchConfig, *,
+                     window: int = 0):
     """One-token decode. x: (B, 1, D); cache_[kv]: (B, S_max, K, hd);
     pos: an int (one write position for every row) or a (B,) integer tensor
     of per-row positions (continuous batching: each slot decodes at its own
-    depth). Writes the new key and value into the caches **in place** and
-    returns (out, cache_k, cache_v)."""
+    depth). ``window > 0`` masks the full-length cache to the keys
+    t > pos - window. Writes the new key and value into the caches **in
+    place** and returns (out, cache_k, cache_v)."""
     q, k, v, posb = _decode_qkv(params, x, pos, cfg)
     rows = torch.arange(x.shape[0], device=x.device)
     cache_k[rows, posb[:, 0]] = k[:, 0].to(cache_k.dtype)
     cache_v[rows, posb[:, 0]] = v[:, 0].to(cache_v.dtype)
     trange = torch.arange(cache_k.shape[1], device=x.device)
     mask = trange[None, :] <= posb                          # (B, S_max)
+    if window > 0:
+        mask &= trange[None, :] > posb - window
     out = _decode_attend(params, q, cache_k, cache_v, mask, cfg, x.dtype)
     return out, cache_k, cache_v
 

@@ -134,6 +134,13 @@ def _params_device_dtype(params) -> tuple[torch.device, torch.dtype]:
     return emb.device, emb.dtype
 
 
+def _check_fits(req: Request, cache_len: int) -> None:
+    if len(req.tokens) + req.max_new_tokens > cache_len:
+        raise ValueError(
+            f"request {req.request_id}: prompt {len(req.tokens)} + "
+            f"{req.max_new_tokens} new tokens exceeds cache_len {cache_len}")
+
+
 def _argmax(logits: torch.Tensor) -> np.ndarray:
     """Greedy tokens; ties take the first maximum, as jnp.argmax does."""
     return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
@@ -149,6 +156,7 @@ class ServingEngine(_EngineStatsMixin):
         self.max_batch = max_batch
         self.cache_len = cache_len
         self.opts = opts or M.ModelOptions(remat=False)
+        M.check_cache_options(cfg, self.opts)
         self.device, _ = _params_device_dtype(params)
         self.queue: list[Request] = []
         self._init_stream_stats()
@@ -156,6 +164,10 @@ class ServingEngine(_EngineStatsMixin):
                       "decode_steps": 0, "wall_s": 0.0}
 
     def submit(self, req: Request) -> None:
+        """Queue a request; one that would run past ``cache_len`` is refused
+        here, before anything is queued (the reference's static engine
+        takes it and clamps the cache write)."""
+        _check_fits(req, self.cache_len)
         req.enqueue_t = time.monotonic()
         self.queue.append(req)
 
@@ -237,6 +249,7 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
         self.max_slots = max_slots
         self.cache_len = cache_len
         self.opts = opts or M.ModelOptions(remat=False)
+        M.check_cache_options(cfg, self.opts)
         self.device, dtype = _params_device_dtype(params)
         self.queue: list[Request] = []
         self.cache = M.init_cache(cfg, max_slots, cache_len, dtype, self.opts,
@@ -255,11 +268,7 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
     # -- queue ---------------------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        if len(req.tokens) + req.max_new_tokens > self.cache_len:
-            raise ValueError(
-                f"request {req.request_id}: prompt {len(req.tokens)} + "
-                f"{req.max_new_tokens} new tokens exceeds cache_len "
-                f"{self.cache_len}")
+        _check_fits(req, self.cache_len)
         req.enqueue_t = time.monotonic()
         self.queue.append(req)
 

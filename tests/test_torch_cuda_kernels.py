@@ -37,6 +37,14 @@ SHAPES = [
     (1, 1024, 16, 128, 16, 1024, True, 0),   # many KV tiles: causal skipping
     (1, 1024, 16, 256, 1, 1024, True, 256),  # many KV tiles: window skipping
     (2, 200, 8, 64, 2, 333, False, 0),     # many tiles, ragged, encoder
+    (1, 32, 32, 128, 4, 32, True, 0),      # yi-9b prefill: 8-way GQA
+    (1, 32, 48, 128, 8, 32, True, 0),      # nemotron-4-15b prefill
+    (1, 288, 14, 64, 2, 288, True, 0),     # internvl2-1b: 256 patches + 32
+    (1, 500, 16, 80, 16, 500, False, 0),   # hubert-xlarge: hd 80, encoder,
+                                           # ragged last KV tile (20 keys)
+    (1, 128, 2, 80, 2, 128, False, 0),     # hd 80, encoder, whole tiles
+    (1, 300, 16, 80, 4, 300, True, 0),     # hd 80, ragged causal GQA
+    (2, 37, 4, 80, 2, 90, True, 24),       # hd 80, T > S with a window
 ]
 
 
@@ -115,6 +123,30 @@ def test_reduced_model_prefill_kernel_matches_einsum(cuda):
         lp, cp = M.prefill(params, {"tokens": toks}, cfg,
                            M.ModelOptions(use_kernels=False), 48)
     torch.testing.assert_close(lk, lp, atol=1e-4, rtol=1e-4)
+
+
+def test_reduced_hubert_at_head_dim_80_kernel_matches_plain(cuda):
+    """The encoder's forward_hidden (non-causal, sinusoidal positions) at
+    head_dim 80 with the kernel against the plain path."""
+    import dataclasses
+    from repro_torch.checkpoint import init_params
+    from repro_torch.data.pipeline import InputShape, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+    cfg = dataclasses.replace(get_config("hubert-xlarge", reduced=True),
+                              num_heads=2, num_kv_heads=2, head_dim=80)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda)
+    batch = make_batch(cfg, InputShape("t", 100, 2, "prefill"), seed=1,
+                       device=cuda)
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        hk = M.forward_hidden(params, batch, cfg,
+                              M.ModelOptions(use_kernels=True))
+        hp = M.forward_hidden(params, batch, cfg,
+                              M.ModelOptions(use_kernels=False))
+    assert fa.flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(hk, hp, atol=1e-4, rtol=1e-4)
 
 
 # ---------------- SSD chunked scan ----------------

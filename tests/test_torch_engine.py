@@ -93,6 +93,26 @@ def test_static_engine_rejects_unequal_prompts(weights):
         static.step()
 
 
+@pytest.mark.parametrize("engine", ["static", "continuous"])
+def test_request_past_cache_len_is_refused_at_submit(weights, engine):
+    """A 16-token prompt with 8 new tokens does not fit a cache of 20: both
+    engines refuse it at ``submit`` and queue nothing (the reference's
+    static engine takes it and clamps the last writes), and a request that
+    just fits is taken."""
+    _, _, cfg, params = weights
+    cls = ServingEngine if engine == "static" else ContinuousBatchingEngine
+    size = {"max_batch" if engine == "static" else "max_slots": 2}
+    eng = cls(cfg, params, cache_len=20, **size)
+    toks = _toks(cfg, np.random.default_rng(3))
+    with pytest.raises(ValueError, match="cache_len 20"):
+        eng.submit(Request("long", toks, max_new_tokens=8))
+    assert eng.queue == []
+    assert eng.drain() == []
+    eng.submit(Request("fits", toks, max_new_tokens=4))
+    (done,) = eng.drain()
+    assert done.request_id == "fits" and len(done.output) == 4
+
+
 def test_finished_slot_reused_and_edf_admission(weights):
     _, _, cfg, _ = weights
     rng = np.random.default_rng(0)
