@@ -28,7 +28,10 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    (CUDA events), its device time alone (profiler), its host enqueue time
    (host clock, no synchronise), the plain version and
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
-   it), and print the bound.
+   it), and print the bound. In bf16 also at the MoE models' prefill
+   shapes, qwen3-moe-30b-a3b's (1, 32, 32, 128, 4, 32) (yi-9b's) and
+   moonshot-v1-16b-a3b's (1, 32, 16, 128, 16, 32) (olmo-1b's), with bf16
+   SDPA and the bound in bf16 bytes.
 4. Hold the SSD kernels against their plain version: the reference's
    kernel test grid (g = 2 and the production-like state among it), the
    serving shape (one 128-chunk, 80 heads), a multi-chunk multi-batch shape
@@ -65,16 +68,34 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    masks in prefill and decode: the kernels with a ring cache of 128 slots
    against the plain path over the full cache with the window mask.
    hubert-xlarge's ``forward_hidden`` over (1, 500, 1280) frames, the
-   hidden states within 1e-3. Each path's flash launches, counted from 0,
-   must be its attention layers x its kernel-path prefills (6) or
-   forwards (1).
+   hidden states within 1e-3 (and its MoE aux 0). qwen3-moe-30b-a3b at
+   full width cut to 8 layers, so that it fits in fp32: kernels against
+   plain within 1e-3, identical greedy tokens; the same model in bf16,
+   each path against the fp32 logits, and the routed tokens whose experts
+   differ (a witness of where bf16 paths part). Then the MoE models,
+   qwen3-moe-30b-a3b and moonshot-v1-16b-a3b, at full width in bf16 (61.1
+   and 56.1 GB of weights; fp32 would not fit the card), one at a time:
+   prefill a 32-token prompt and decode 8 greedy tokens with the kernels,
+   twice (identical tokens and logits: the kernel path is deterministic),
+   then the plain path fed the kernel path's tokens (teacher forcing:
+   bf16 greedy runs may legitimately part), its logits within
+   ``BF16_LOGIT_TOL`` (abs + rel) and ``BF16_REL_RMS_TOL`` (rms(diff) /
+   rms(plain)) of the kernel path's at the prefill and every step; every
+   flash call of a kernel-path prefill against the plain version in fp32
+   on its own q, k, v within 2e-2; a control run with a planted fault
+   (the middle layer's last 4 flash rows zeroed) that both checks must
+   see; peak memory beside the weights' bytes. Each path's flash
+   launches, counted from 0, must be its attention layers x its
+   kernel-path prefills (6) or forwards (1).
 6. The main paths: ``serve(arch, reduced=False, ...)`` with the continuous-
-   batching engine for each model in turn. Every kernel's launch count is
+   batching engine for each model in turn; qwen3-moe-30b-a3b with bf16
+   weights, through an engine built here and ``serve``'s second half,
+   ``launch.serve.measure_and_plan``. Every kernel's launch count is
    set to 0 just before each run and read just after; each must equal (the
    served config's layers of the kernel's kind) x (prefills, and for the
    fused RG-LRU also the decode steps), the engine's own counts with the
-   warmup's: olmo-1b and yi-9b launch only the flash kernel (16 and 48
-   layers), mamba2-2.7b only the SSD kernel, and recurrentgemma-9b the
+   warmup's: olmo-1b, yi-9b and qwen3-moe-30b-a3b launch only the flash
+   kernel (16, 48 and 48 layers), mamba2-2.7b only the SSD kernel, and recurrentgemma-9b the
    fused RG-LRU kernel in its 26 recurrent layers in every prefill and
    decode step and the flash kernel in its 12 local-attention layers in
    every prefill; the scan-only RG-LRU kernel is on no served path. The H100 fleet is planned again from each
@@ -83,8 +104,19 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    wall time with and without tracing, the device's busy time and idle
    share, and device time by kernel (each port kernel's per wrapper call,
    summed over the device kernels it launches; the fused RG-LRU kernel is
-   named ``rglru_gated_scan_kernel`` in the trace).
-8. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
+   named ``rglru_gated_scan_kernel`` in the trace). For the MoE model, a
+   second traced drain with each step of ``models.moe`` (routing,
+   dispatch, the experts, combine) in a ``record_function`` range: the
+   device time under each step and the expert ``bmm``s' part. The idle
+   share is the unannotated drain's, for every model.
+8. The paper's analysis programs, VGG16 and ZF, at 224 px (reference
+   head: 512 wide, 1000 classes), batch 1 and 8, weights from a seeded
+   generator: the card's fp32 logits against the same model on the CPU
+   within 1e-4 (absolute plus relative); frames/s (CUDA events),
+   ``flops_per_frame`` and TFLOP/s against the 67 TFLOP/s fp32 peak; bf16
+   timed too, with its largest deviation from fp32. One ``{"vgg": ...}``
+   line.
+9. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
    its served paths; ``launches_by_path`` also holds the phase-5 paths),
    then the last line ``{"ok": true, "device": {...}}``.
 
@@ -109,6 +141,19 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM datasheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # non-tensor fp32; bf16
 FP32_TOL, BF16_TOL = 1e-4, 2e-2
 LOGIT_TOL = 1e-3                # fp32 logits of unit scale after 16-64 layers
+# bf16 logits after 48 layers, abs + rel: a loose sanity bound; the first
+# chip run of these paths gave up to 0.36. Both bf16 paths are as far from
+# fp32 as from each other, a quarter of the routed tokens changing experts
+# (check_moe_witness; PERF.md)
+BF16_LOGIT_TOL = 0.5
+# bf16 logits after 48 layers, rms(kernels - plain) / rms(plain) at the
+# prefill and every step: between the sound runs' largest reading and a
+# planted fault's, both of which the run reads again (PERF.md)
+BF16_REL_RMS_TOL = 0.12
+# the planted fault of the bf16 check's control: the flash output of the
+# middle layer's prefill loses its last 4 query rows (zeroed)
+FAULT_ROWS = 4
+MOE_WITNESS_LAYERS = 8          # qwen3-moe at full width, cut to 8 layers
 MAIN_SHAPE = (1, 32, 16, 128, 16, 32, True, 0)   # B, S, H, hd, K, T, causal, window
 RG_FLASH_SHAPE = (1, 32, 16, 256, 1, 32, True, 2048)  # recurrentgemma-9b prefill
 YI_FLASH_SHAPE = (1, 32, 32, 128, 4, 32, True, 0)     # yi-9b prefill, 8-way GQA
@@ -144,6 +189,11 @@ FLASH_TIMED = {"olmo-1b": MAIN_SHAPE, "hd256": RG_FLASH_SHAPE,
                "yi-9b": YI_FLASH_SHAPE, "nemotron-4-15b": NEMOTRON_FLASH_SHAPE,
                "internvl2-1b": INTERNVL_FLASH_SHAPE,
                "hubert-xlarge hd80": HUBERT_FLASH_SHAPE}
+# the MoE models' prefill shapes, timed in bf16, the dtype they serve in:
+# qwen3-moe-30b-a3b's is yi-9b's (8-way GQA), moonshot-v1-16b-a3b's
+# olmo-1b's (MHA); both are in SHAPES, so held in fp32 and bf16 above
+FLASH_TIMED_BF16 = {"qwen3-moe-30b-a3b bf16": YI_FLASH_SHAPE,
+                    "moonshot-v1-16b-a3b bf16": MAIN_SHAPE}
 # b, s, h, p, g, n, chunk
 SSD_MAIN_SHAPE = (1, 128, 80, 64, 1, 128, 128)   # mamba2-2.7b prefill, padded
 SSD_MANY_CHUNKS = (1, 2048, 16, 64, 2, 128, 128)  # 16 chunks: all four kernels
@@ -188,9 +238,14 @@ KERNEL_MIXERS = {"flash_attention": (("attn", "attn_window"), False),
 # each served model and the kernels its main path runs
 SERVED = {"olmo-1b": ["flash_attention"], "mamba2-2.7b": ["ssd_scan"],
           "recurrentgemma-9b": ["rglru_gated_scan", "flash_attention"],
-          "yi-9b": ["flash_attention"]}
+          "yi-9b": ["flash_attention"],
+          "qwen3-moe-30b-a3b": ["flash_attention"]}
+# the MoE models run in bf16: 61.1 and 56.1 GB of weights, which would not
+# fit the card's 80 GB in fp32; qwen3-moe-30b-a3b is also served
+BF16_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
 # phase 5 beyond the served models: full-width paths the launcher does not
 # serve (nemotron-4-15b could be; the others need frames or patches)
+VGG_HW = 224                    # the canonical VGG16/ZF frame size
 YI_WINDOW = 128                 # window_override of yi-9b's long-prompt check
 YI_WINDOW_PROMPT = 300
 
@@ -347,9 +402,11 @@ def check_flash(torch, fa, ref) -> dict:
                 if blind_err > FP32_TOL:
                     fail(f"T < S rows are not mean(v): {blind_err:.3e}")
 
-    # time at each path's shape, fp32 (the dtype it serves in)
+    # time at each path's shape, in the dtype the path runs in
     times = {shape: time_flash(torch, fa, ref, shape)
              for shape in FLASH_TIMED.values()}
+    times_bf16 = {key: time_flash(torch, fa, ref, shape, torch.bfloat16)
+                  for key, shape in FLASH_TIMED_BF16.items()}
     rec = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:70",
@@ -364,16 +421,23 @@ def check_flash(torch, fa, ref) -> dict:
                         "max_abs_err": worst[(shape, "torch.float32")],
                         "max_abs_err_bf16": worst[(shape, "torch.bfloat16")],
                         **times[shape]}
+    for key, shape in FLASH_TIMED_BF16.items():
+        rec[key] = {"shape": list(shape[:6]), "causal": shape[6],
+                    "window": shape[7], "dtype": "bfloat16",
+                    "max_abs_err": worst[(shape, "torch.bfloat16")],
+                    **times_bf16[key]}
     return rec
 
 
-def time_flash(torch, fa, ref, shape) -> dict:
+def time_flash(torch, fa, ref, shape, dtype=None) -> dict:
     """The kernel, its plain version and ``scaled_dot_product_attention`` (a
     yardstick only, with each KV head expanded onto its query heads) at one
-    fp32 shape whose window, if any, is >= T, by CUDA events."""
+    shape whose window, if any, is >= T, in ``dtype`` (fp32 by default), by
+    CUDA events."""
     B, S, H, hd, K, T, causal, window = shape
+    dtype = dtype or torch.float32
     gen = torch.Generator(device="cuda").manual_seed(7)
-    q, k, v = (torch.randn(s, generator=gen, device="cuda")
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
                for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
     run = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
     ms = cuda_ms(torch, run)
@@ -388,13 +452,15 @@ def time_flash(torch, fa, ref, shape) -> dict:
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library = lambda: sdpa(qt, kt, vt, is_causal=causal)
     library_ms = cuda_ms(torch, library)
-    lib_err = (library().transpose(1, 2) - run()).abs().max().item()
-    bound_ms, bound_by = attention_bound_ms(shape, "float32")
+    lib_err = (library().transpose(1, 2).float() - run().float()).abs(
+    ).max().item()
+    dtype_name = str(dtype)[6:]
+    bound_ms, bound_by = attention_bound_ms(shape, dtype_name)
     sdpa_host_ms = host_enqueue_ms(torch, library)
-    print(f"flash_attention {shape} float32: kernel {ms:.5f} ms back to back"
-          f" (device {dev_ms:.6f} ms, host enqueue {host_ms:.6f} ms), plain "
-          f"{plain_ms:.5f} ms, sdpa {library_ms:.5f} ms back to back (host "
-          f"enqueue {sdpa_host_ms:.6f} ms, |diff| {lib_err:.2e}), bound "
+    print(f"flash_attention {shape} {dtype_name}: kernel {ms:.5f} ms back "
+          f"to back (device {dev_ms:.6f} ms, host enqueue {host_ms:.6f} ms), "
+          f"plain {plain_ms:.5f} ms, sdpa {library_ms:.5f} ms back to back "
+          f"(host enqueue {sdpa_host_ms:.6f} ms, |diff| {lib_err:.2e}), bound "
           f"{bound_ms:.6f} ms ({bound_by})")
     return {"ms": ms, "device_ms_alone": dev_ms, "host_enqueue_ms": host_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -627,12 +693,13 @@ def check_rglru_gated(torch, rg, ref) -> dict:
                          for s, t in times.items() if s != GATED_MAIN_SHAPE}}
 
 
-def _params(torch, cfg):
+def _params(torch, cfg, dtype=None):
+    """Weights from a seeded generator on the card, fp32 unless told."""
     from repro_torch.checkpoint import init_params
     gc.collect()                         # the last model's weights, if any
     torch.cuda.empty_cache()
     return init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                       torch.float32, device="cuda")
+                       dtype or torch.float32, device="cuda")
 
 
 def _prompt(torch, cfg, prompt_len: int) -> dict:
@@ -746,8 +813,11 @@ def check_encoder(torch, arch: str, fa, frames: int = 500) -> int:
         opts = M.ModelOptions(use_kernels=use_kernels)
         fa.flash_attention.launches = 0
         with torch.no_grad():
-            hidden[use_kernels] = M.forward_hidden(params, batch, cfg, opts)
+            hidden[use_kernels], aux = M.forward_hidden(params, batch, cfg,
+                                                        opts)
             torch.cuda.synchronize()
+            if aux.item() != 0.0:
+                fail(f"{arch}: MoE aux {aux.item()} of a model without MoE")
             if use_kernels:
                 launches = fa.flash_attention.launches
             t0 = time.perf_counter()
@@ -769,6 +839,304 @@ def check_encoder(torch, arch: str, fa, frames: int = 500) -> int:
         fail(f"{arch}: flash launched {launches} times in one forward; "
              f"expected {want}")
     del params, hidden, hk, hp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _greedy(torch, steps, params, batch, cfg, opts, cache_len: int,
+            S: int, forced=None):
+    """Prefill ``batch`` and decode 8 tokens from it: greedy, or, with
+    ``forced``, feeding those 8 tokens (teacher forcing). Returns (the
+    prefill's and each step's logits, the 8 tokens fed, the cache)."""
+    logits, cache = steps.prefill_step(params, batch, cfg, opts, cache_len)
+    seen, fed = [logits], []
+    for i in range(8):
+        tok = (torch.argmax(logits, -1) if forced is None else
+               torch.as_tensor(forced[i:i + 1], device=logits.device))
+        fed.append(int(tok[0]))
+        logits, cache = steps.decode_step(
+            params, cache, {"token": tok, "pos": S + i}, cfg, opts)
+        seen.append(logits)
+    torch.cuda.synchronize()
+    return seen, fed, cache
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def _rel_rms(got, want) -> float:
+    """rms(got - want) / rms(want) of two logit rows."""
+    return ((got.float() - want.float()).square().mean()
+            / want.float().square().mean()).sqrt().item()
+
+
+def _hook_flash(errs: list, fault_call: int = -1):
+    """Wrap ``kernels.ops.flash_attention``, the op the model calls, for
+    one run: each call's output is held against the plain version in fp32
+    on the same q, k, v, and its max |kernel - plain| / (1 + |plain|) is
+    appended to ``errs``; call ``fault_call`` (counted from 0) first has
+    its last ``FAULT_ROWS`` query rows zeroed, a planted fault. Returns the
+    function that restores the op."""
+    from repro_torch.kernels import ops, ref
+    real = ops.flash_attention
+
+    def run(q, k, v, *, causal=True, window=0):
+        out = real(q, k, v, causal=causal, window=window)
+        if len(errs) == fault_call:
+            out = out.clone()
+            out[:, -FAULT_ROWS:] = 0
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                       causal=causal, window=window)
+        errs.append(((out.float() - want).abs() / (1 + want.abs())).max()
+                    .item())
+        return out
+
+    ops.flash_attention = run
+    return lambda: setattr(ops, "flash_attention", real)
+
+
+def _record_routing(seen: list):
+    """Wrap ``models.moe._route`` for one run: each call's chosen experts,
+    sorted per token, go to ``seen``. Returns the function that restores
+    it."""
+    from repro_torch.models import moe
+    real = moe._route
+
+    def run(router, x, cfg):
+        probs, top_w, top_ids = real(router, x, cfg)
+        seen.append(top_ids.sort(dim=-1).values.cpu())
+        return probs, top_w, top_ids
+
+    moe._route = run
+    return lambda: setattr(moe, "_route", real)
+
+
+def _routing_departures(a: list, b: list) -> tuple[int, int]:
+    """(routed tokens whose chosen experts differ, routed tokens) between
+    two runs' ``_record_routing`` lists."""
+    differ = sum(int((x != y).any(dim=-1).sum()) for x, y in zip(a, b))
+    return differ, sum(x.shape[0] for x in a)
+
+
+def check_moe_witness(torch, fa, arch: str = "qwen3-moe-30b-a3b", *,
+                      prompt_len: int = 32, cache_len: int = 128) -> int:
+    """Phase 5, the witness for the bf16 MoE checks: ``arch`` at full width
+    cut to ``MOE_WITNESS_LAYERS`` layers, so that it fits in fp32. Weights
+    are drawn in bf16 and also widened to fp32, one model in both dtypes.
+    In fp32 the kernel path is held against the plain path as every fp32
+    model is: logits within ``LOGIT_TOL`` at the prefill and each of 8
+    greedy steps, identical tokens. Then each bf16 path is fed the fp32
+    tokens, and its logits' rms(diff) / rms(fp32) and its routed tokens
+    whose experts differ from fp32's are printed: where the bf16 gap
+    between the kernel and the plain path comes from. Returns the flash
+    launches in the fp32 kernel path's prefill, which must be the layers."""
+    import dataclasses
+
+    from repro_torch.models import model as M
+    from repro_torch.models import steps
+    from repro_torch.models.config import get_config
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=MOE_WITNESS_LAYERS)
+    params16 = _params(torch, cfg, torch.bfloat16)
+    params32 = _cast(params16, torch.float32)
+    batch = _prompt(torch, cfg, prompt_len)
+    label = f"{arch} cut to {cfg.num_layers} layers, prefill(1x{prompt_len})"
+    runs, routes = {}, {}
+    for dtype, params in (("fp32", params32), ("bf16", params16)):
+        for use_kernels in (True, False):
+            opts = M.ModelOptions(use_kernels=use_kernels)
+            forced = None if dtype == "fp32" else runs["fp32", True][1]
+            routes[dtype, use_kernels] = []
+            restore = _record_routing(routes[dtype, use_kernels])
+            fa.flash_attention.launches = 0
+            try:
+                runs[dtype, use_kernels] = _greedy(
+                    torch, steps, params, batch, cfg, opts, cache_len,
+                    prompt_len, forced=forced)
+            finally:
+                restore()
+            if dtype == "fp32" and use_kernels:
+                launches = fa.flash_attention.launches   # decode runs none
+    (lk, tk, _), (lp, tp, _) = runs["fp32", True], runs["fp32", False]
+    diffs = [(a - b).abs().max().item() for a, b in zip(lk, lp)]
+    print(f"{label} fp32, kernels vs plain: max |diff| by step "
+          f"{[f'{d:.3e}' for d in diffs]} (tol {LOGIT_TOL}); greedy tokens "
+          f"{tk}")
+    if any(not torch.isfinite(a).all() for a in lk):
+        fail(f"{label} fp32: non-finite logits")
+    if max(diffs) > LOGIT_TOL:
+        fail(f"{label} fp32 logits differ by {max(diffs):.3e}")
+    if tk != tp:
+        fail(f"{label} fp32 greedy tokens differ: kernels {tk} vs plain {tp}")
+    if launches != cfg.num_layers:
+        fail(f"{label}: flash launched {launches} times in a prefill; "
+             f"expected {cfg.num_layers}")
+    for use_kernels in (True, False):
+        seen = runs["bf16", use_kernels][0]
+        flips, routed = _routing_departures(routes["bf16", use_kernels],
+                                            routes["fp32", True])
+        print(f"{label} bf16 use_kernels={use_kernels} against fp32 "
+              f"(teacher-forced): rms(diff) / rms(fp32) by step "
+              f"{[f'{_rel_rms(a, b):.3e}' for a, b in zip(seen, lk)]}"
+              f"; routed tokens whose experts differ from fp32's: {flips} "
+              f"of {routed}")
+    flips, routed = _routing_departures(routes["bf16", True],
+                                        routes["bf16", False])
+    gap = max(_rel_rms(a, b) for a, b in zip(runs["bf16", True][0],
+                                                    runs["bf16", False][0]))
+    print(f"{label} bf16, kernels vs plain: rms(diff) / rms(plain) "
+          f"{gap:.3e}; routed tokens whose experts differ: {flips} of "
+          f"{routed}")
+    del params16, params32, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_bf16_model(torch, arch: str, fa, *, prompt_len: int = 32,
+                     cache_len: int = 128) -> int:
+    """Phase 5, an MoE model at full width in bf16 (the weights would not
+    fit the card in fp32): prefill one prompt and decode 8 greedy tokens on
+    the kernel path, twice (the tokens and logits must be identical: the
+    kernel path is deterministic); then the plain path fed the kernel
+    path's 8 tokens (teacher forcing, since bf16 logits may legitimately
+    part two greedy runs), its logits held against the kernel path's at the
+    prefill and every step within ``BF16_LOGIT_TOL`` (abs + rel) and
+    ``BF16_REL_RMS_TOL`` (rms(diff) / rms(plain)); each path's prefill
+    and decode step timed, and peak memory printed beside the weights'
+    bytes. Then the kernel path fed the same tokens twice more with each
+    flash call of the model held against the plain version in fp32 on its
+    own q, k, v within ``BF16_TOL``: once as it is (its logits must equal
+    the first run's), once with a planted fault in the middle layer's
+    flash output (``_hook_flash``), which both checks must see. Returns
+    the flash kernel's launches in the kernel path's first 6 prefills
+    (counted from 0), which must be the attention layers x 6."""
+    from repro_torch.models import model as M
+    from repro_torch.models import steps
+    from repro_torch.models.config import get_config
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = _params(torch, cfg, torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in _leaves(params))
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in _leaves(params)) / 1e9
+    print(f"{arch} full width: {n_params} parameters (bf16, {weight_gb:.2f} "
+          f"GB) initialised in {time.perf_counter() - t0:.2f} s")
+    batch = _prompt(torch, cfg, prompt_len)
+    label = f"{arch} bf16 prefill(1x{prompt_len})"
+    kernel_opts = M.ModelOptions(use_kernels=True)
+    plain_opts = M.ModelOptions(use_kernels=False)
+    fa.flash_attention.launches = 0
+    runs = [_greedy(torch, steps, params, batch, cfg, kernel_opts, cache_len,
+                    prompt_len)]
+    timed = {}
+    for name, opts in (("kernels", kernel_opts), ("plain", plain_opts)):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            steps.prefill_step(params, batch, cfg, opts, cache_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) / 5 * 1e3
+        if name == "kernels":
+            launches = fa.flash_attention.launches
+        cache = runs[0][2]
+        tok = torch.as_tensor(runs[0][1][-1:], device="cuda")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            steps.decode_step(params, cache, {"token": tok,
+                                              "pos": prompt_len + 8},
+                              cfg, opts)
+        torch.cuda.synchronize()
+        timed[name] = (prefill_ms, (time.perf_counter() - t0) / 5 * 1e3)
+    runs.append(_greedy(torch, steps, params, batch, cfg, kernel_opts,
+                        cache_len, prompt_len))
+    tokens = runs[0][1]
+    plain = _greedy(torch, steps, params, batch, cfg, plain_opts, cache_len,
+                    prompt_len, forced=tokens)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, (p_ms, d_ms) in timed.items():
+        print(f"{label} {name}: {p_ms:.3f} ms; decode step (B=1): "
+              f"{d_ms:.3f} ms")
+    print(f"{label}: greedy tokens (kernels) {tokens}; peak memory "
+          f"{peak_gb:.2f} GB for {weight_gb:.2f} GB of weights")
+    if runs[1][1] != tokens:
+        fail(f"{label}: a second kernel-path run gave tokens {runs[1][1]}, "
+             f"the first {tokens}")
+    if any(not torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0])):
+        fail(f"{label}: a second kernel-path run gave other logits")
+    diffs, scaled, rel_rms = [], [], []
+    for step, (lk, lp) in enumerate(zip(runs[0][0], plain[0])):
+        if lk.shape != (1, cfg.vocab_size) or not torch.isfinite(lk).all():
+            fail(f"{label} step {step}: logits of shape {tuple(lk.shape)} or "
+                 "non-finite")
+        err = (lk - lp).abs()
+        diffs.append(err.max().item())
+        scaled.append((err / (1 + lp.abs())).max().item())
+        rel_rms.append(_rel_rms(lk, lp))
+        if bool((err > BF16_LOGIT_TOL * (1 + lp.abs())).any()):
+            fail(f"{label} step {step}: kernel and plain logits differ by "
+                 f"{diffs[-1]:.3e} (tol {BF16_LOGIT_TOL} abs + rel)")
+    agree = sum(int(torch.argmax(lp, -1)[0]) == t
+                for lp, t in zip(plain[0][:8], tokens))
+    print(f"{label} logits, kernels vs plain (teacher-forced): max |diff| "
+          f"by step {[f'{d:.3e}' for d in diffs]}, max |diff| / (1 + |plain|)"
+          f" {max(scaled):.3e} (tol {BF16_LOGIT_TOL}), rms(diff) / "
+          f"rms(plain) by step {[f'{r:.3e}' for r in rel_rms]} (tol "
+          f"{BF16_REL_RMS_TOL}); the plain path's argmax is the "
+          f"kernel path's token at {agree} of 8 steps; the kernel path is "
+          "deterministic (two runs, identical tokens and logits)")
+    if max(rel_rms) > BF16_REL_RMS_TOL:
+        fail(f"{label}: kernel and plain logits differ by rms(diff) / "
+             f"rms(plain) {max(rel_rms):.3e} (tol {BF16_REL_RMS_TOL})")
+    layers = expected_launches(cfg, "flash_attention", 1, 0)
+    calls, faulted = [], []
+    restore = _hook_flash(calls)
+    try:
+        checked = _greedy(torch, steps, params, batch, cfg, kernel_opts,
+                          cache_len, prompt_len, forced=tokens)
+    finally:
+        restore()
+    restore = _hook_flash(faulted, fault_call=layers // 2)
+    try:
+        fault = _greedy(torch, steps, params, batch, cfg, kernel_opts,
+                        cache_len, prompt_len, forced=tokens)
+    finally:
+        restore()
+    fault_rms = [_rel_rms(a, b) for a, b in zip(fault[0], plain[0])]
+    at = layers // 2
+    print(f"{label}: the model's {len(calls)} flash calls against the plain "
+          f"version in fp32 on their own q, k, v: max |diff| / (1 + |plain|)"
+          f" {max(calls):.3e} (tol {BF16_TOL}); control, the last "
+          f"{FAULT_ROWS} rows of call {at} zeroed: that call "
+          f"{faulted[at]:.3e}, the others "
+          f"{max(faulted[:at] + faulted[at + 1:]):.3e}; its logits' "
+          f"rms(diff) / rms(plain) by step "
+          f"{[f'{r:.3e}' for r in fault_rms]} (tol {BF16_REL_RMS_TOL})")
+    if len(calls) != layers or max(calls) > BF16_TOL:
+        fail(f"{label}: {len(calls)} flash calls in a prefill, max |diff| / "
+             f"(1 + |plain|) {max(calls):.3e} against the plain version")
+    if any(not torch.equal(a, b) for a, b in zip(checked[0], runs[0][0])):
+        fail(f"{label}: holding each flash call against the plain version "
+             "changed the kernel path's logits")
+    if faulted[at] <= BF16_TOL:
+        fail(f"{label}: the per-call check did not see the planted fault")
+    if max(fault_rms) <= BF16_REL_RMS_TOL:
+        fail(f"{label}: the bound {BF16_REL_RMS_TOL} on rms(diff) / "
+             f"rms(plain) did not see the planted fault "
+             f"({max(fault_rms):.3e})")
+    want = expected_launches(cfg, "flash_attention", 6, 0)
+    if launches != want:
+        fail(f"{label}: flash launched {launches} times in 6 prefills; "
+             f"expected {want}")
+    del params, runs, plain, cache, checked, fault
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -813,8 +1181,10 @@ def serve_path(torch, arch: str, wrappers: dict) -> dict:
     """Phase 6 for one model: serve it at full width with every launch
     count set to 0 just before and read just after, check each count
     against the prefills and decode steps the engine ran (warmup included),
-    and plan the H100 fleet again from the measured rates. Returns the
-    counts."""
+    and plan the H100 fleet again from the measured rates. An fp32 model
+    goes through ``serve()``; a bf16 one (``BF16_ARCHS``) through an engine
+    built here on bf16 weights and ``serve``'s second half,
+    ``measure_and_plan``. Returns the counts."""
     from repro_torch.core.gpu_catalog import (plan_gpu_fleet,
                                               streams_from_measured)
     from repro_torch.launch import serve as serve_mod
@@ -824,11 +1194,21 @@ def serve_path(torch, arch: str, wrappers: dict) -> dict:
     plain_cls = serve_mod.ContinuousBatchingEngine
     serve_mod.ContinuousBatchingEngine = engine_cls
     try:
+        if arch in BF16_ARCHS:
+            eng = engine_cls(get_config(arch), _params(
+                torch, get_config(arch), torch.bfloat16), max_slots=8,
+                cache_len=128)
+            torch.cuda.synchronize()
         for fn in wrappers.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        report = serve_mod.serve(arch, reduced=False, n_streams=4, fps=2,
-                                 seconds=3, engine="continuous")
+        if arch in BF16_ARCHS:
+            report = serve_mod.measure_and_plan(eng, n_streams=4, fps=2,
+                                                seconds=3)
+            del eng
+        else:
+            report = serve_mod.serve(arch, reduced=False, n_streams=4, fps=2,
+                                     seconds=3, engine="continuous")
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in wrappers.items()}
         wall = time.perf_counter() - t0
@@ -881,12 +1261,16 @@ def profile_serving(torch, arch: str, wrappers: dict) -> dict:
     share of the wall time, and device time by kernel. A port kernel's time
     per call is the time of every device kernel named after it (the SSD
     scan launches two to four per call) over its wrapper's calls in the
-    traced drain."""
+    traced drain. For an MoE model a second traced drain, with each step
+    of ``models.moe`` in a ``record_function`` range, gives the device time
+    by MoE step against that drain's own busy time; the idle share, as for
+    every model, is the first (unannotated) drain's."""
     from repro_torch.models.config import get_config
     from repro_torch.serving import ContinuousBatchingEngine, StreamSimulator
 
     cfg = get_config(arch)
-    params = _params(torch, cfg)
+    params = _params(torch, cfg,
+                     torch.bfloat16 if arch in BF16_ARCHS else None)
     eng = ContinuousBatchingEngine(cfg, params, max_slots=8, cache_len=128)
     sim = StreamSimulator(eng, prompt_len=32, new_tokens=8, seed=1)
     streams = {f"cam-{i}": 2.0 for i in range(4)}
@@ -900,19 +1284,8 @@ def profile_serving(torch, arch: str, wrappers: dict) -> dict:
     wall_plain = time.perf_counter() - t0
     sim.tick(streams)
     before = {name: fn.launches for name, fn in wrappers.items()}
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.drain()
-        torch.cuda.synchronize()
-        wall_traced = time.perf_counter() - t0
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            rec = by_name.setdefault(e.name, [0.0, 0])
-            rec[0] += e.time_range.elapsed_us() / 1e3
-            rec[1] += 1
+    prof, wall_traced = _traced_drain(torch, eng)
+    by_name = _device_kernels(torch, prof)
     busy_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     per_call, port = {}, {}
@@ -931,11 +1304,156 @@ def profile_serving(torch, arch: str, wrappers: dict) -> dict:
            "port_kernels_ms": port,
            "top_device_kernels_ms": [(k[:80], round(v[0], 4), v[1])
                                      for k, v in top]}
+    if cfg.num_experts:
+        sim.tick(streams)
+        restore = _label_moe_parts(torch)
+        try:
+            prof, wall_labelled = _traced_drain(torch, eng)
+        finally:
+            restore()
+        labelled_busy = sum(v[0] for v in _device_kernels(torch, prof)
+                            .values())
+        out["moe_drain"] = {"wall_traced_ms": wall_labelled * 1e3,
+                            "device_busy_ms": labelled_busy}
+        out["moe_device_ms"] = _moe_device_ms(torch, prof, labelled_busy)
     print(f"serving profile (8 requests, full {arch}): " + json.dumps(out))
     del eng, sim, params
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _traced_drain(torch, eng):
+    """Drain ``eng`` under ``torch.profiler``. Returns (the profile, the
+    drain's wall seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def _device_kernels(torch, prof) -> dict:
+    """Device kernels of a profile by name: [ms, calls]."""
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        # a record_function range also shows on the device's timeline, as a
+        # span over its kernels: not a kernel of its own
+        if e.device_type == torch.autograd.DeviceType.CUDA and not (
+                e.is_user_annotation or e.name in MOE_PARTS.values()):
+            rec = by_name.setdefault(e.name, [0.0, 0])
+            rec[0] += e.time_range.elapsed_us() / 1e3
+            rec[1] += 1
+    return by_name
+
+
+MOE_PARTS = {"_route": "moe.route", "_aux_loss": "moe.route",
+             "_slots": "moe.route", "_dispatch": "moe.dispatch",
+             "_experts": "moe.experts", "_combine": "moe.combine"}
+
+
+def _label_moe_parts(torch):
+    """Wrap each step of ``models.moe`` (routing, dispatch, the experts'
+    products, combine) in a ``record_function`` range named after it, for
+    one traced drain; returns the function that restores them."""
+    from repro_torch.models import moe
+
+    plain = {name: getattr(moe, name) for name in MOE_PARTS}
+
+    def labelled(fn, label):
+        def run(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return run
+
+    for name, label in MOE_PARTS.items():
+        setattr(moe, name, labelled(plain[name], label))
+    return lambda: [setattr(moe, n, f) for n, f in plain.items()]
+
+
+def _moe_device_ms(torch, prof, busy_ms: float) -> dict:
+    """Device time under each MoE range of a traced drain (the kernels its
+    ops launched), its share of the device's busy time, and the part of
+    ``moe.experts`` that its ``aten::bmm`` calls (the expert products)
+    take."""
+    totals: dict[str, float] = {}
+    bmm_ms = 0.0
+    for e in prof.events():
+        if e.name in MOE_PARTS.values() and \
+                e.device_type == torch.autograd.DeviceType.CPU:
+            totals[e.name] = totals.get(e.name, 0.0) + \
+                e.device_time_total / 1e3
+            if e.name == "moe.experts":
+                bmm_ms += sum(c.device_time_total for c in e.cpu_children
+                              if c.name == "aten::bmm") / 1e3
+    out = {k: {"ms": v, "share_of_busy": v / busy_ms}
+           for k, v in sorted(totals.items())}
+    out["expert bmm"] = {"ms": bmm_ms, "share_of_busy": bmm_ms / busy_ms}
+    return out
+
+
+def check_vgg(torch) -> dict:
+    """Phase 8: VGG16 and ZF at 224 px with the reference's 512-wide head
+    and 1000 classes, weights from a seeded generator: the card's logits
+    (fp32, TF32 off) against the same model on the CPU with the same
+    weights, within ``FP32_TOL`` absolute plus relative, at batch 1 and 8;
+    frames/s by CUDA events, and the achieved TFLOP/s from
+    ``flops_per_frame`` against the fp32 peak; then bf16 weights and
+    frames, timed, and their logits' largest deviation from fp32."""
+    from repro_torch.models import vgg
+
+    def to(tree, **kw):
+        return {k: [{n: t.to(**kw) for n, t in p.items()} for p in v]
+                for k, v in tree.items()}
+
+    report = {}
+    for net, layout in (("vgg16", vgg.VGG16_LAYOUT), ("zf", vgg.ZF_LAYOUT)):
+        cpu = vgg.init_convnet(layout, torch.Generator().manual_seed(0),
+                               input_hw=VGG_HW, device="cpu")
+        params = to(cpu, device="cuda")
+        params16 = to(params, dtype=torch.bfloat16)
+        flops = vgg.flops_per_frame(layout, VGG_HW)
+        for batch in (1, 8):
+            x = torch.as_tensor(np.random.default_rng(batch).standard_normal(
+                (batch, VGG_HW, VGG_HW, 3)), dtype=torch.float32)
+            xc, x16 = x.to("cuda"), x.to("cuda", torch.bfloat16)
+            with torch.no_grad():
+                want = vgg.apply_convnet(cpu, x, layout)
+                got = vgg.apply_convnet(params, xc, layout)
+                got16 = vgg.apply_convnet(params16, x16, layout)
+                torch.cuda.synchronize()
+                err = _compare(f"{net} logits, card vs CPU",
+                               (batch, VGG_HW, VGG_HW, 3), torch.float32,
+                               got.cpu(), want, FP32_TOL)
+                if got.shape != (batch, 1000):
+                    fail(f"{net}: logits of shape {tuple(got.shape)}")
+                if not torch.isfinite(got16).all():
+                    fail(f"{net} bf16: non-finite logits")
+                dev16 = (got16.float() - got).abs().max().item()
+                ms = cuda_ms(torch, lambda: vgg.apply_convnet(
+                    params, xc, layout), iters=30, warmup=5)
+                ms16 = cuda_ms(torch, lambda: vgg.apply_convnet(
+                    params16, x16, layout), iters=30, warmup=5)
+            rec = {"flops_per_frame": flops, "max_abs_err_vs_cpu": err,
+                   "fp32_ms": ms, "fp32_frames_per_s": batch / ms * 1e3,
+                   "fp32_tflops": flops * batch / ms / 1e9,
+                   "fp32_peak_share": flops * batch / ms / 1e9 / 67.0,
+                   "bf16_ms": ms16, "bf16_frames_per_s": batch / ms16 * 1e3,
+                   "bf16_tflops": flops * batch / ms16 / 1e9,
+                   "bf16_max_abs_dev_from_fp32": dev16,
+                   "logit_max_abs": want.abs().max().item()}
+            report[f"{net} batch {batch}"] = rec
+            print(f"{net} {VGG_HW} px batch {batch}: {flops / 1e9:.4f} "
+                  f"GFLOP a frame; fp32 {ms:.4f} ms = "
+                  f"{rec['fp32_frames_per_s']:.1f} frames/s, {rec['fp32_tflops']:.2f} TFLOP/s "
+                  f"({rec['fp32_peak_share']:.3f} of 67); bf16 {ms16:.4f} ms "
+                  f"= {rec['bf16_frames_per_s']:.1f} frames/s, "
+                  f"{rec['bf16_tflops']:.2f} TFLOP/s, max |bf16 - fp32| "
+                  f"{dev16:.3e} (logits up to {rec['logit_max_abs']:.3e})")
+    return report
 
 
 def _leaves(tree):
@@ -1008,7 +1526,8 @@ def main() -> None:
     # launches of the paths no served model runs are kept by path
     model_paths = {}
     for arch in SERVED:
-        check_full_model(torch, arch, fa)
+        if arch not in BF16_ARCHS:
+            check_full_model(torch, arch, fa)
     for arch in ("nemotron-4-15b", "internvl2-1b"):
         model_paths[f"{arch} prefill x6 (phase 5)"] = check_full_model(
             torch, arch, fa, cache_len=512)
@@ -1018,6 +1537,14 @@ def main() -> None:
         window=YI_WINDOW)
     model_paths["hubert-xlarge forward_hidden (phase 5)"] = check_encoder(
         torch, "hubert-xlarge", fa)
+    model_paths[f"qwen3-moe-30b-a3b {MOE_WITNESS_LAYERS} layers fp32 "
+                "prefill (phase 5)"] = check_moe_witness(torch, fa)
+    for arch in BF16_ARCHS:
+        model_paths[f"{arch} bf16 prefill x6 (phase 5)"] = check_bf16_model(
+            torch, arch, fa)
+
+    # 8) the paper's analysis programs
+    vgg_report = check_vgg(torch)
 
     # 6) the main paths: serve, then plan from the measured rates; a kernel
     # on two paths records the sum of its served launches and each path's
@@ -1039,6 +1566,7 @@ def main() -> None:
             per_call = prof["device_ms_per_call"][name]
             records[name].setdefault("device_ms", per_call)
             records[name].setdefault("device_ms_by_path", {})[arch] = per_call
+    print(json.dumps({"vgg": vgg_report}))
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

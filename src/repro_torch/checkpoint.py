@@ -63,9 +63,15 @@ def _block_shapes(cfg: ArchConfig, kind) -> dict:
         H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         mixer = {"wq": (D, H * hd), "wk": (D, K * hd), "wv": (D, K * hd),
                  "wo": (H * hd, D)}
-    ffn = {"w1": (D, cfg.d_ff), "w2": (cfg.d_ff, D)}
-    if cfg.gated:
-        ffn["w3"] = (D, cfg.d_ff)
+    if kind[1] == "moe":
+        E, Fe = cfg.num_experts, cfg.moe_d_ff
+        ffn = {"router": (D, E), "w1": (E, D, Fe), "w2": (E, Fe, D)}
+        if cfg.gated:
+            ffn["w3"] = (E, D, Fe)
+    else:
+        ffn = {"w1": (D, cfg.d_ff), "w2": (cfg.d_ff, D)}
+        if cfg.gated:
+            ffn["w3"] = (D, cfg.d_ff)
     return {"norm1": _norm_shapes(cfg), "mixer": mixer,
             "norm2": _norm_shapes(cfg), "ffn": ffn}
 
@@ -132,15 +138,17 @@ def _init_std(cfg: ArchConfig, path: str) -> float:
     """The reference's standard deviation of the normal-drawn leaf at port
     path ``path``. A mixer's ``wo`` and ``conv_w`` take their own mixer's
     std (an RG-LRU ``wo`` is 1/√W/√(2L), an attention ``wo`` 1/√(H·hd)/√(2L);
-    an RG-LRU ``conv_w`` 1/√rnn_conv, an SSD one 1/√ssm_conv), so the layer's
-    block kind is read from the path."""
+    an RG-LRU ``conv_w`` 1/√rnn_conv, an SSD one 1/√ssm_conv), and an FFN's
+    ``w2`` its own FFN's (an MLP's 1/√d_ff/√(2L), an MoE's
+    1/√moe_d_ff/√(2L)), so the layer's block kind is read from the path."""
     parts = path.split("/")
     name = parts[-1]
-    mixer = (cfg.layer_kinds[int(parts[1])][0]
-             if parts[0] == "layers" and parts[2] == "mixer" else None)
+    kind = (cfg.layer_kinds[int(parts[1])] if parts[0] == "layers"
+            else (None, None))
+    mixer = kind[0] if parts[2:3] == ["mixer"] else None
     out = 1.0 / math.sqrt(2 * cfg.num_layers)        # output projections
     if name in ("wq", "wk", "wv", "w1", "w3", "in_proj", "lm_head", "wx",
-                "wgate"):
+                "wgate", "router"):
         return 1.0 / math.sqrt(cfg.d_model)
     if name in ("wr", "wi"):
         return 1.0 / math.sqrt(cfg.rnn_width)
@@ -148,6 +156,8 @@ def _init_std(cfg: ArchConfig, path: str) -> float:
         return out / math.sqrt(cfg.rnn_width)
     if name == "wo":
         return out / math.sqrt(cfg.num_heads * cfg.head_dim)
+    if name == "w2" and kind[1] == "moe":
+        return out / math.sqrt(cfg.moe_d_ff)
     if name == "w2":
         return out / math.sqrt(cfg.d_ff)
     if name == "out_proj":
@@ -168,8 +178,9 @@ def _leaf_dtype(path: str, dtype: torch.dtype) -> torch.dtype:
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.float32, device="cuda") -> dict:
     """Random parameters with the reference's distributions
-    (``repro.models.layers.init_attention/init_mlp/init_embed`` and
-    ``repro.models.ssm.init_ssd``, ``repro.models.rglru.init_rglru``):
+    (``repro.models.layers.init_attention/init_mlp/init_embed``,
+    ``repro.models.moe.init_moe``, ``repro.models.ssm.init_ssd`` and
+    ``repro.models.rglru.init_rglru``):
     N(0, 1) scaled by 1/sqrt(fan_in) (the convs by 1/sqrt(kernel width)),
     the output projections further by 1/sqrt(2 * num_layers), embeddings by
     0.02; norm scales 1, biases 0; SSD ``A_log = log(linspace(1, 16, H))``,

@@ -5,6 +5,8 @@ the paper's empirical profiling step), then plans an H100 fleet from the
 *measured* per-stream tokens/sec three ways — per-stream, uniform-big and
 packed — and reports cost, throughput and SLO attainment. The port of
 ``repro.launch.serve``; it runs on the GPU unless told ``device="cpu"``.
+``serve`` draws fp32 weights, as the reference does; ``measure_and_plan``
+is its second half, for an engine built by the caller (bf16 weights, say).
 
     python -m repro_torch.launch.serve --device cuda [--full]
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 import torch
@@ -42,11 +45,17 @@ def _warmup(eng, prompt_len: int, new_tokens: int) -> None:
     eng.reset_stats()
 
 
+def _device_bytes(device) -> int:
+    """Memory of ``device``: the card's, or the host's for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
 def serve(arch: str = "olmo-1b", *, n_streams: int = 4, fps: float = 2.0,
           seconds: int = 3, reduced: bool = True, engine: str = "continuous",
           device="cuda") -> dict:
-    # 1) serve the streams and measure throughput (fp32 weights drawn from
-    # a seeded generator on the device)
     cfg = get_config(arch, reduced=reduced)
     if cfg.frontend != "none" or cfg.is_encoder:
         # a request carries tokens only: no patch embeddings or audio
@@ -54,6 +63,13 @@ def serve(arch: str = "olmo-1b", *, n_streams: int = 4, fps: float = 2.0,
         raise ValueError(f"serve: {arch} (frontend {cfg.frontend!r}, "
                          f"{'encoder' if cfg.is_encoder else 'decoder'}) "
                          "does not serve token requests")
+    need, have = 4 * cfg.param_count(), _device_bytes(device)
+    if need > have:
+        raise ValueError(
+            f"serve: {arch}'s fp32 weights take {need / 1e9:.1f} GB and "
+            f"{device} has {have / 1e9:.1f} GB; build an engine on bf16 "
+            "weights and serve it with measure_and_plan")
+    # fp32 weights drawn from a seeded generator on the device
     gen = torch.Generator(device=device).manual_seed(0)
     params = init_params(cfg, gen, torch.float32, device=device)
     if engine == "continuous":
@@ -63,6 +79,18 @@ def serve(arch: str = "olmo-1b", *, n_streams: int = 4, fps: float = 2.0,
         eng = ServingEngine(cfg, params, max_batch=8, cache_len=128)
     else:
         raise ValueError(engine)
+    return measure_and_plan(eng, n_streams=n_streams, fps=fps,
+                            seconds=seconds)
+
+
+def measure_and_plan(eng, *, n_streams: int = 4, fps: float = 2.0,
+                     seconds: int = 3) -> dict:
+    """Warm ``eng`` (either engine), serve ``n_streams`` simulated streams
+    at ``fps`` for ``seconds`` ticks, and plan the H100 fleet three ways
+    from the measured per-stream rates of its architecture
+    (``eng.cfg.name``). Returns ``serve``'s report."""
+    arch = eng.cfg.name
+    # 1) serve the streams and measure throughput
     _warmup(eng, prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS)
     sim = StreamSimulator(eng, prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS)
     done = []
@@ -83,7 +111,8 @@ def serve(arch: str = "olmo-1b", *, n_streams: int = 4, fps: float = 2.0,
     savings = 1.0 - packed["hourly_cost"] / per_stream["hourly_cost"]
     out = {
         "arch": arch,
-        "engine": engine,
+        "engine": ("continuous" if isinstance(eng, ContinuousBatchingEngine)
+                   else "static"),
         "frames_served": len(done),
         "tokens_per_s": round(eng.throughput_tokens_per_s(), 1),
         "measured_stream_tokens_per_s": {k: round(v, 1)

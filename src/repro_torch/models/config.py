@@ -3,7 +3,7 @@
 A copy of ``repro.models.config`` (the port imports nothing from ``repro``).
 A model is a stack of blocks; each block is (mixer, ffn). The port runs
 ``("attn", "mlp")`` (decoders and the bidirectional encoder, ``causal=False``),
-``("attn_window", "mlp")``, ``("rglru", "mlp")`` and
+``("attn", "moe")``, ``("attn_window", "mlp")``, ``("rglru", "mlp")`` and
 ``("ssd", None)`` blocks; the other kinds stay in the schema so configs keep
 their reference shape. ``param_count`` is the reference's formula as it
 stands (2L + 1 norms whatever the block kinds, no SSD ``conv_b``/
@@ -177,5 +177,6 @@ def _ensure_loaded() -> None:
         return
     import importlib
     for mod in ("olmo_1b", "mamba2_2_7b", "recurrentgemma_9b", "yi_9b",
-                "nemotron_4_15b", "internvl2_1b", "hubert_xlarge"):
+                "nemotron_4_15b", "internvl2_1b", "hubert_xlarge",
+                "qwen3_moe_30b_a3b", "moonshot_v1_16b_a3b", "grok_1_314b"):
         importlib.import_module(f"repro_torch.configs.{mod}")

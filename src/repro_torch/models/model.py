@@ -10,8 +10,10 @@ with one entry of ``layers`` per layer: the reference's ``lax.scan`` over
 stacked repeats becomes a Python loop, and its (repeat, ...) leaves become
 per-layer tensors (``repro_torch.checkpoint.load_flat`` splits them). An
 ``("ssd", None)`` layer has ``norm1`` and an SSD ``mixer`` (see
-``models.ssm``) and no ``norm2``/``ffn``; an ``("rglru", "mlp")`` layer
-has an RG-LRU ``mixer`` (see ``models.rglru``). The cache is a list with one
+``models.ssm``) and no ``norm2``/``ffn``; an ``("attn", "moe")``
+layer's ``ffn`` is ``{router, w1, w2[, w3]}`` (see ``models.moe``); an
+``("rglru", "mlp")`` layer has an RG-LRU ``mixer`` (see
+``models.rglru``). The cache is a list with one
 dict per layer and no leading repeat axis: ``{"k", "v"}`` of (B, L, K, hd)
 for attention (a ring of L = min(cache_len, window) slots, position p in
 slot p % L, for ``attn_window`` or for ``ModelOptions.window_override`` with
@@ -24,6 +26,7 @@ embeddings plus sinusoidal positions (``frontend="audio"``).
 
 This port covers the block kinds in ``KINDS``. Modes:
   forward_hidden — full sequence, final-norm hidden states (an encoder)
+                   and the MoE auxiliary loss
   prefill        — full sequence, returns last-position logits + cache
   decode_step    — one token per row against the cache (updated in place)
 """
@@ -35,7 +38,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers, rglru, ssm
+from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.config import ArchConfig
 
 
@@ -58,8 +61,9 @@ class ModelOptions:
     only, since a prefill would hand back H-head K/V for a K-head decode
     cache (``prefill`` refuses it for GQA models). ``remat`` is kept for
     parity with the reference's options; the port has no training step, so
-    it changes nothing here. The reference's MoE options come with the MoE
-    blocks."""
+    it changes nothing here. The reference's MoE sharding options
+    (``moe_local_dispatch`` and the expert shard constraint) wait for the
+    port's distributed layer."""
 
     use_kernels: bool = True
     window_override: int = 0
@@ -75,8 +79,8 @@ class ModelOptions:
                              "full-sequence attention")
 
 
-KINDS = (("attn", "mlp"), ("attn_window", "mlp"), ("rglru", "mlp"),
-         ("ssd", None))
+KINDS = (("attn", "mlp"), ("attn", "moe"), ("attn_window", "mlp"),
+         ("rglru", "mlp"), ("ssd", None))
 
 
 def check_kind(kind) -> None:
@@ -130,10 +134,21 @@ def init_block_cache(cfg: ArchConfig, kind, batch: int, cache_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _apply_ffn(params, x: torch.Tensor, cfg: ArchConfig, ffn: str):
+    """The block's FFN after its mixer: (x + FFN(norm2(x)), MoE aux or
+    None)."""
+    h = layers.apply_norm(params["norm2"], x, cfg)
+    if ffn == "moe":
+        out, aux = moe.apply_moe(params["ffn"], h, cfg)
+        return x + out, aux
+    return x + layers.apply_mlp(params["ffn"], h, cfg), None
+
+
 def apply_block_full(params, x: torch.Tensor, cfg: ArchConfig, kind,
                      opts: ModelOptions, want_cache: bool,
                      cache_len: int = 0):
-    """Full-sequence block. Returns (x, cache_or_None)."""
+    """Full-sequence block. Returns (x, aux, cache_or_None): aux is the MoE
+    auxiliary loss (fp32 scalar) of an ``moe`` FFN, else None."""
     check_kind(kind)
     mixer, ffn = kind
     h = layers.apply_norm(params["norm1"], x, cfg)
@@ -165,10 +180,9 @@ def apply_block_full(params, x: torch.Tensor, cfg: ArchConfig, kind,
                      "v": _ring_from_prefill(v, L, S)}
     x = x + out
     if ffn is None:
-        return x, cache
-    h2 = layers.apply_norm(params["norm2"], x, cfg)
-    x = x + layers.apply_mlp(params["ffn"], h2, cfg)
-    return x, cache
+        return x, None, cache
+    x, aux = _apply_ffn(params, x, cfg, ffn)
+    return x, aux, cache
 
 
 def _ring_from_prefill(k: torch.Tensor, L: int, S: int) -> torch.Tensor:
@@ -181,7 +195,8 @@ def _ring_from_prefill(k: torch.Tensor, L: int, S: int) -> torch.Tensor:
 
 def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
                        cfg: ArchConfig, kind, opts: ModelOptions):
-    """One-token block. Returns (x, cache), the cache updated in place."""
+    """One-token block. Returns (x, cache), the cache updated in place; an
+    MoE FFN's aux is dropped, as in the reference."""
     check_kind(kind)
     mixer, ffn = kind
     h = layers.apply_norm(params["norm1"], x, cfg)
@@ -205,8 +220,7 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
     x = x + out
     if ffn is None:
         return x, cache
-    h2 = layers.apply_norm(params["norm2"], x, cfg)
-    x = x + layers.apply_mlp(params["ffn"], h2, cfg)
+    x, _ = _apply_ffn(params, x, cfg, ffn)
     return x, cache
 
 
@@ -271,22 +285,28 @@ def embed_inputs(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 def apply_stack_full(params, x: torch.Tensor, cfg: ArchConfig,
                      opts: ModelOptions, want_cache: bool,
                      cache_len: int = 0):
-    """All blocks over the full sequence. Returns (x, caches_or_None)."""
+    """All blocks over the full sequence. Returns (x, aux, caches_or_None):
+    aux is the MoE auxiliary loss summed over the layers, an fp32 scalar
+    (0 without MoE blocks)."""
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], cfg.layer_kinds):
-        x, c = apply_block_full(p, x, cfg, kind, opts, want_cache, cache_len)
+        x, aux_l, c = apply_block_full(p, x, cfg, kind, opts, want_cache,
+                                       cache_len)
+        if aux_l is not None:
+            aux = aux + aux_l
         caches.append(c)
-    return x, (caches if want_cache else None)
+    return x, aux, (caches if want_cache else None)
 
 
-def forward_hidden(params, batch: dict, cfg: ArchConfig,
-                   opts: ModelOptions) -> torch.Tensor:
+def forward_hidden(params, batch: dict, cfg: ArchConfig, opts: ModelOptions):
     """Embed (``embed_inputs``), every block over the full sequence, final
-    norm: the hidden states (B, S, D). The reference also returns its MoE
-    auxiliary loss, which the blocks this port runs do not have."""
+    norm. Returns (hidden states (B, S, D), aux): aux is the MoE auxiliary
+    loss summed over the layers, an fp32 scalar, 0 for a model without
+    MoE blocks."""
     x = embed_inputs(params, batch, cfg)
-    x, _ = apply_stack_full(params, x, cfg, opts, want_cache=False)
-    return layers.apply_norm(params["final_norm"], x, cfg)
+    x, aux, _ = apply_stack_full(params, x, cfg, opts, want_cache=False)
+    return layers.apply_norm(params["final_norm"], x, cfg), aux
 
 
 def check_cache_options(cfg: ArchConfig, opts: ModelOptions) -> None:
@@ -306,8 +326,8 @@ def prefill(params, batch: dict, cfg: ArchConfig, opts: ModelOptions,
     Returns (last-position logits (B, V) in fp32, cache)."""
     check_cache_options(cfg, opts)
     x = embed_inputs(params, batch, cfg)
-    x, cache = apply_stack_full(params, x, cfg, opts, want_cache=True,
-                                cache_len=cache_len)
+    x, _, cache = apply_stack_full(params, x, cfg, opts, want_cache=True,
+                                   cache_len=cache_len)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     last = x[:, -1]
     logits = layers.unembed(params["embed"], last[:, None], cfg)[:, 0]

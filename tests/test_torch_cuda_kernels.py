@@ -1,5 +1,6 @@
 """The CUDA kernels (flash attention, SSD chunked scan, RG-LRU scan) against
-their plain PyTorch versions, on the GPU. Every test here needs a CUDA device of compute capability >= 9.0
+their plain PyTorch versions, on the GPU, and the MoE layer's determinism
+there. Every test here needs a CUDA device of compute capability >= 9.0
 (Hopper) and skips without one; this file imports no jax, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
 
@@ -141,12 +142,59 @@ def test_reduced_hubert_at_head_dim_80_kernel_matches_plain(cuda):
                        device=cuda)
     before = fa.flash_attention.launches
     with torch.no_grad():
-        hk = M.forward_hidden(params, batch, cfg,
-                              M.ModelOptions(use_kernels=True))
-        hp = M.forward_hidden(params, batch, cfg,
-                              M.ModelOptions(use_kernels=False))
+        hk, _ = M.forward_hidden(params, batch, cfg,
+                                 M.ModelOptions(use_kernels=True))
+        hp, _ = M.forward_hidden(params, batch, cfg,
+                                 M.ModelOptions(use_kernels=False))
     assert fa.flash_attention.launches == before + cfg.num_layers
     torch.testing.assert_close(hk, hp, atol=1e-4, rtol=1e-4)
+
+
+# the MoE models' prefill shapes, the first time flash runs in bf16 on a
+# served path: qwen3-moe-30b-a3b (8-way GQA) and moonshot-v1-16b-a3b (MHA)
+MOE_PREFILL_SHAPES = [(1, 32, 32, 128, 4, 32, True, 0),
+                      (1, 32, 16, 128, 16, 32, True, 0)]
+
+
+@pytest.mark.parametrize("shape", MOE_PREFILL_SHAPES,
+                         ids=["qwen3-moe", "moonshot"])
+def test_bf16_flash_at_moe_prefill_shapes(cuda, shape):
+    q, k, v = _inputs(shape, torch.bfloat16, cuda, seed=3)
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_moe_is_deterministic_on_the_card(cuda):
+    """qwen3-moe's routing (128 experts, top 8) at a narrow width: two bf16
+    runs on the card are bit-equal (the dispatch writes each slot once,
+    the combine sums over K without atomics), and fp32 on the card agrees
+    with fp32 on the CPU."""
+    import dataclasses
+    from repro_torch.models import moe
+    from repro_torch.models.config import get_config
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), d_model=256,
+                              moe_d_ff=128)
+    rng = np.random.default_rng(0)
+    shapes = {"router": (256, 128), "w1": (128, 256, 128),
+              "w3": (128, 256, 128), "w2": (128, 128, 256)}
+    params = {k: torch.as_tensor(rng.standard_normal(s) / np.sqrt(s[-2]),
+                                 dtype=torch.float32)
+              for k, s in shapes.items()}
+    x = torch.as_tensor(rng.standard_normal((8, 32, 256)),
+                        dtype=torch.float32)
+    on_card = {k: v.to(cuda) for k, v in params.items()}
+    want, want_aux = moe.apply_moe(params, x, cfg)
+    got, aux = moe.apply_moe(on_card, x.to(cuda), cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-6)
+    bf16 = {k: v.bfloat16() for k, v in on_card.items()}
+    xb = x.to(cuda, torch.bfloat16)
+    runs = [moe.apply_moe(bf16, xb, cfg)[0] for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
 
 
 # ---------------- SSD chunked scan ----------------

@@ -101,7 +101,7 @@ def test_hubert_at_head_dim_80_forward_hidden_matches_reference(
     want, _ = JM.forward_hidden(jparams, batch, jcfg, JM.ModelOptions(
         use_kernels=use_kernels, remat=False))
     with torch.no_grad():
-        got = M.forward_hidden(
+        got, _ = M.forward_hidden(
             params, {"frames": torch.tensor(np.asarray(batch["frames"]))},
             cfg, M.ModelOptions(use_kernels=use_kernels))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,

@@ -130,11 +130,11 @@ def test_hubert_forward_hidden_matches_reference(opts_kw, tmp_path):
     want, jaux = JM.forward_hidden(jparams, jbatch, jcfg,
                                    JM.ModelOptions(remat=False, **opts_kw))
     with torch.no_grad():
-        got = M.forward_hidden(params, _torch_batch(jbatch), cfg,
-                               M.ModelOptions(**opts_kw))
+        got, aux = M.forward_hidden(params, _torch_batch(jbatch), cfg,
+                                    M.ModelOptions(**opts_kw))
     assert got.shape == (2, 64, cfg.d_model)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    assert float(jaux) == 0.0                    # no MoE block: no aux loss
+    assert float(jaux) == aux.item() == 0.0      # no MoE block: no aux loss
 
 
 @pytest.mark.parametrize("S,D", [(7, 256), (50, 1280)])

@@ -124,10 +124,10 @@ def test_gqa_expand_kv_forward_hidden_matches_reference(weights, use_kernels):
                                                 gqa_expand_kv=True))
     batch = {"tokens": torch.from_numpy(toks).long()}
     with torch.no_grad():
-        got = M.forward_hidden(params, batch, cfg, M.ModelOptions(
+        got, _ = M.forward_hidden(params, batch, cfg, M.ModelOptions(
             use_kernels=use_kernels, gqa_expand_kv=True))
-        plain = M.forward_hidden(params, batch, cfg,
-                                 M.ModelOptions(use_kernels=use_kernels))
+        plain, _ = M.forward_hidden(params, batch, cfg,
+                                    M.ModelOptions(use_kernels=use_kernels))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     torch.testing.assert_close(got, plain, atol=1e-5, rtol=1e-5)
 
