@@ -7,8 +7,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 
 1. Require a CUDA device of compute capability >= 9.0; print the card's
    name and power limit as ``nvidia-smi`` reports them.
-2. Build the CUDA kernels (flash attention, SSD chunked scan, RG-LRU: the
-   scan and the fused gates-and-scan form, one source) from
+2. Build the CUDA kernels (flash attention and its backward, SSD chunked
+   scan, RG-LRU: the scan and the fused gates-and-scan form, one source) from
    ``src/repro_torch/kernels/csrc`` with nvcc, one compiler per source, all
    started together (cached under ``build/``), and print their reports.
 3. Hold the flash kernel against its plain PyTorch version on seeded inputs:
@@ -116,9 +116,32 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    ``flops_per_frame`` and TFLOP/s against the 67 TFLOP/s fp32 peak; bf16
    timed too, with its largest deviation from fp32. One ``{"vgg": ...}``
    line.
-9. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
-   its served paths; ``launches_by_path`` also holds the phase-5 paths),
-   then the last line ``{"ok": true, "device": {...}}``.
+9. Training. (a) The flash backward kernel (built in phase 2 from
+   ``csrc/flash_attention_bwd.cu``) against its plain version in fp32 and
+   bf16 at olmo-1b's training shape (8, 256, 16, 128), yi-9b's GQA (2,
+   256, 32, 128, K = 4), internvl2-1b's (2, 288, 14, 64, K = 2), hd 256
+   MQA with a window of 128 at S = 512, hubert-xlarge's non-causal (1,
+   500, 16, 80) and a ragged causal S = 37 at hd 32: dq, dk, dv within
+   fp32 1e-4 / bf16 2e-2, the forward's lse within 1e-4 of the plain
+   log-sum-exp, every output finite, two runs bit-equal, and a control
+   (dv with a key tile zeroed) that must fail the comparison; at olmo-1b's
+   shape its times (back to back, device alone, host enqueue, the forward
+   with lse, the plain version, the bound) and, as a yardstick only,
+   ``scaled_dot_product_attention``'s forward and backward in fp32. (b)
+   Full-width olmo-1b in fp32 (batch 8 × 256, remat), the served models
+   freed: each gradient leaf at the first step, kernels against plain;
+   the main path ``launch.train.train`` for 4 steps with every count set
+   to 0 just before and read just after (exactly 32 flash forwards and 16
+   backwards a step, nothing else), then 4 steps with
+   ``use_kernels=False`` from the same weights and batches (loss and
+   grad_norm by step); step time, tokens/s and peak memory beside the
+   18.8 GB of state; one step profiled (busy, idle share, device time by
+   kernel group); the train state through the port's checkpoint and back,
+   equal. (c) ``ops.ssd_scan``, ``ops.rglru_scan`` and
+   ``ops.rglru_gated_scan`` refuse CUDA inputs that require grad.
+10. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
+   its main paths, served and trained; ``launches_by_path`` also holds the
+   phase-5 paths), then the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout, so fp32 matrix products are full fp32.
 """
@@ -234,7 +257,8 @@ GATED_SHAPES = [GATED_MAIN_SHAPE, GATED_DECODE_SHAPE,
 # it there
 KERNEL_MIXERS = {"flash_attention": (("attn", "attn_window"), False),
                  "ssd_scan": (("ssd",), False), "rglru_scan": ((), False),
-                 "rglru_gated_scan": (("rglru",), True)}
+                 "rglru_gated_scan": (("rglru",), True),
+                 "flash_attention_bwd": ((), False)}   # training only
 # each served model and the kernels its main path runs
 SERVED = {"olmo-1b": ["flash_attention"], "mamba2-2.7b": ["ssd_scan"],
           "recurrentgemma-9b": ["rglru_gated_scan", "flash_attention"],
@@ -245,6 +269,30 @@ SERVED = {"olmo-1b": ["flash_attention"], "mamba2-2.7b": ["ssd_scan"],
 BF16_ARCHS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b")
 # phase 5 beyond the served models: full-width paths the launcher does not
 # serve (nemotron-4-15b could be; the others need frames or patches)
+# the training phase (9): the flash backward's shapes (B, S, H, hd, K,
+# causal, window; T == S), olmo-1b's training shape first
+BWD_MAIN_SHAPE = (8, 256, 16, 128, 16, True, 0)
+BWD_SHAPES = [
+    BWD_MAIN_SHAPE,
+    (2, 256, 32, 128, 4, True, 0),         # yi-9b: 8-way GQA
+    (2, 288, 14, 64, 2, True, 0),          # internvl2-1b: 7-way GQA
+    (1, 512, 16, 256, 1, True, 128),       # hd 256 MQA, window 128
+    (1, 500, 16, 80, 16, False, 0),        # hubert-xlarge: encoder, hd 80
+    (2, 37, 4, 32, 2, True, 0),            # ragged causal at hd 32
+]
+# lse against the plain log-sum-exp, abs + rel: both are fp32 sums of the
+# same scores (the bf16 products are exact in fp32), in other orders
+LSE_TOL = 1e-4
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "olmo-1b", 8, 256, 4
+# kernels against plain, full-width olmo-1b in fp32: each step's loss and
+# grad_norm, |a - b| / |b|. Both paths sum in fp32 in other orders through
+# 16 layers, forward and backward (expected ~1e-5); a gradient lost at the
+# attention layers moves the loss by far more by step 2
+TRAIN_REL_TOL = 1e-4
+# each gradient leaf at the first step, ‖g_kernels − g_plain‖ / ‖g_plain‖:
+# the same fp32 reordering, compounded through 16 layers' backward
+# (expected ~1e-5); a wrong or missing wq/wk/wv gradient reads ~1
+GRAD_REL_TOL = 1e-3
 VGG_HW = 224                    # the canonical VGG16/ZF frame size
 YI_WINDOW = 128                 # window_override of yi-9b's long-prompt check
 YI_WINDOW_PROMPT = 300
@@ -332,6 +380,12 @@ def attention_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
     B, S, H, hd, K, T, causal, window = shape
     esize = 4 if dtype_name == "float32" else 2
     nbytes = esize * (2 * B * S * H * hd + 2 * B * T * K * hd)
+    flops = 4.0 * hd * B * H * _visible_pairs(S, T, causal, window)
+    return _bound(nbytes, flops, dtype_name)       # q·k and p·v
+
+
+def _visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask keeps; queries are the last S of T."""
     q_pos = np.arange(S)[:, None] + (T - S)
     t = np.arange(T)[None, :]
     vis = np.ones((S, T), bool)
@@ -339,7 +393,18 @@ def attention_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
         vis &= t <= q_pos
     if window > 0:
         vis &= t > q_pos - window
-    flops = 4.0 * hd * B * H * int(vis.sum())       # q·k and p·v
+    return int(vis.sum())
+
+
+def attention_bwd_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
+    """Least time for one flash backward: q, k, v, o, dO and lse read once
+    and dq, dk, dv written once at the HBM rate, against its five products
+    (S = q·kᵀ again, dP = dO·vᵀ, dV = Pᵀ·dO, dQ = dS·k, dK = dSᵀ·q), 10·hd
+    flops for each visible (query, key) pair, at the dtype's peak rate."""
+    B, S, H, hd, K, causal, window = shape
+    esize = 4 if dtype_name == "float32" else 2
+    nbytes = esize * (4 * B * S * H * hd + 4 * B * S * K * hd) + 4 * B * H * S
+    flops = 10.0 * hd * B * H * _visible_pairs(S, S, causal, window)
     return _bound(nbytes, flops, dtype_name)
 
 
@@ -363,6 +428,13 @@ def ssd_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
         macs += b * g * pairs * n + b * h * pairs * p
         macs += b * h * lc * n * p * ((i > 0) + (i < len(chunks) - 1))
     return _bound(nbytes, 2.0 * macs, "float32")
+
+
+def _within(got, want, tol: float) -> bool:
+    """|got - want| <= tol + tol·|want| everywhere, and got finite."""
+    err = (got.float() - want.float()).abs()
+    return bool(got.isfinite().all()) and not bool(
+        (err > tol + tol * want.float().abs()).any())
 
 
 def _compare(name: str, shape, dtype, got, want, tol: float) -> float:
@@ -1456,6 +1528,328 @@ def check_vgg(torch) -> dict:
     return report
 
 
+def check_flash_bwd(torch, fa, ref) -> dict:
+    """Phase 9a: the flash backward kernel against its plain version at
+    ``BWD_SHAPES`` in fp32 and bf16 (dq, dk, dv within fp32 1e-4 / bf16
+    2e-2: fp32 sums in other orders; in bf16 both sides compute in fp32
+    from the same bf16 inputs and round once), the forward's lse against
+    the plain log-sum-exp, every output finite, two runs bit-equal, and a
+    control: dv with one key tile zeroed must fail the same comparison.
+    Times at olmo-1b's training shape in fp32. Returns the kernel's record
+    for the final JSON line."""
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        for i, shape in enumerate(BWD_SHAPES):
+            B, S, H, hd, K, causal, window = shape
+            gen = torch.Generator(device="cuda").manual_seed(300 + i)
+            q, do = (torch.randn((B, S, H, hd), generator=gen,
+                                 device="cuda").to(dtype) for _ in range(2))
+            k, v = (torch.randn((B, S, K, hd), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+            o = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   lse=lse)
+            _, lse_ref = ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                                     window=window)
+            if not _within(lse, lse_ref, LSE_TOL):
+                fail(f"flash lse {shape} {dtype}: max |err| "
+                     f"{(lse - lse_ref).abs().max().item():.3e}")
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                               causal=causal, window=window)
+            torch.cuda.synchronize()
+            errs = [_compare(f"flash_attention_bwd d{n}", shape, dtype, g, w,
+                             tol) for n, g, w in zip("qkv", got, want)]
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                fail(f"flash_attention_bwd {shape} {dtype}: two runs differ")
+            planted = got[2].clone()
+            planted[:, :32] = 0                      # the first key tile
+            if _within(planted, want[2], tol):
+                fail(f"flash_attention_bwd {shape} {dtype}: the control "
+                     "(dv with its first key tile zeroed) passed the check")
+            worst[(shape, str(dtype))] = max(errs)
+    print("flash_attention_bwd: every shape within tolerance, bit-equal on "
+          "repeat; each control (a zeroed key tile of dv) failed the check")
+
+    # times at olmo-1b's training shape, fp32
+    B, S, H, hd, K, causal, window = BWD_MAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, do = (torch.randn((B, S, H, hd), generator=gen, device="cuda")
+             for _ in range(2))
+    k, v = (torch.randn((B, S, K, hd), generator=gen, device="cuda")
+            for _ in range(2))
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    o = fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    run = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+    ms = cuda_ms(torch, run, iters=50, warmup=5)
+    host_ms = host_enqueue_ms(torch, run, iters=50, warmup=5)
+    dev_ms, per_kernel = device_ms(torch, run, "flash_attention_bwd",
+                                   calls=20)
+    fwd_lse_ms = cuda_ms(torch, lambda: fa.flash_attention(
+        q, k, v, causal=causal, window=window, lse=lse), iters=50, warmup=5)
+    plain_ms = cuda_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=causal, window=window), iters=10,
+        warmup=2)
+    bound_ms, bound_by = attention_bwd_bound_ms(BWD_MAIN_SHAPE, "float32")
+    sdpa = sdpa_fwd_bwd_ms(torch, q, k, v, do)
+    print(f"flash_attention_bwd {BWD_MAIN_SHAPE} float32: kernel {ms:.5f} ms "
+          f"back to back (device {dev_ms:.6f} ms: "
+          f"{json.dumps({k[:60]: round(t, 6) for k, t in per_kernel.items()})}"
+          f"; host enqueue {host_ms:.6f} ms), forward with lse {fwd_lse_ms:.5f}"
+          f" ms, plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}); sdpa (yardstick) {json.dumps(sdpa)}")
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:70",
+            "differentiates": "src/repro/kernels/ref.py:13",
+            "shape": list(BWD_MAIN_SHAPE[:5]), "causal": True,
+            "dtype": "float32",
+            "max_abs_err": worst[(BWD_MAIN_SHAPE, "torch.float32")],
+            "max_abs_err_all_shapes": max(worst.values()),
+            "ms": ms, "device_ms_alone": dev_ms,
+            "device_ms_by_kernel": per_kernel, "host_enqueue_ms": host_ms,
+            "forward_with_lse_ms": fwd_lse_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sdpa["backward_device_ms"],
+            "library_fwd_bwd_ms": sdpa["fwd_bwd_ms"]}
+
+
+def sdpa_fwd_bwd_ms(torch, q, k, v, do) -> dict:
+    """``scaled_dot_product_attention`` (a yardstick only; the port never
+    calls it) forward and backward on the same fp32 MHA inputs, causal:
+    the pair back to back (CUDA events), and the backward's device time,
+    the profiler's kernels of a forward-and-backward call that a forward
+    alone does not launch."""
+    from torch.profiler import ProfilerActivity, profile
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        return sdpa(qt, kt, vt, is_causal=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    fwd_bwd_ms = cuda_ms(torch, fwd_bwd, iters=20, warmup=3)
+    kernels = {}
+    for fn in (fwd, fwd_bwd):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        kernels[fn.__name__] = _device_kernels(torch, prof)
+    bwd = {k: t[0] / 10 for k, t in kernels["fwd_bwd"].items()
+           if k not in kernels["fwd"]}
+    return {"fwd_bwd_ms": fwd_bwd_ms,
+            "backward_device_ms": sum(bwd.values()) if bwd else None,
+            "backward_kernels": sorted(k[:60] for k in bwd)}
+
+
+def _train_batch(torch, seed: int):
+    from repro_torch.data.pipeline import InputShape, make_batch
+    from repro_torch.models.config import get_config
+    return make_batch(get_config(TRAIN_ARCH), InputShape(
+        "custom_train", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=seed)
+
+
+def check_training(torch, fa, wrappers: dict) -> dict:
+    """Phase 9b: full-width olmo-1b training in fp32 on the card, the model
+    alone there. (1) Each gradient leaf at the first step, kernels against
+    plain (``GRAD_REL_TOL``). (2) The main path: ``launch.train.train`` for
+    ``TRAIN_STEPS`` steps with the kernels, every launch count set to 0
+    just before and read just after: 32 flash forwards (16 layers, again in
+    remat's recompute) and 16 backwards a step, nothing else. (3) The same
+    with ``use_kernels=False`` from the same weights and batches: each
+    step's loss and grad_norm within ``TRAIN_REL_TOL``. (4) Step time,
+    tokens/s and peak memory over timed steps; one step profiled (busy,
+    idle share, device time by kernel). (5) The train state saved with the
+    port's ``save_checkpoint``, restored and equal. Prints the training
+    report; returns the main path's launch counts."""
+    import tempfile
+
+    from repro_torch import checkpoint
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as ST
+    from repro_torch.models.config import get_config
+    from repro_torch.tree import items, leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    kernels_on, plain = M.ModelOptions(), M.ModelOptions(use_kernels=False)
+    topts = ST.TrainOptions()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (1) the gradient of every leaf at the first step
+    params = _params(torch, cfg)
+    batch = _train_batch(torch, 0)
+    loss_k, _, g_k = ST.compute_grads(params, batch, cfg, kernels_on, topts)
+    loss_p, _, g_p = ST.compute_grads(params, batch, cfg, plain, topts)
+    names = [p for p, _ in items(params)]
+    rel = {n: (torch.linalg.vector_norm(a - b) /
+               torch.linalg.vector_norm(b)).item()
+           for n, a, b in zip(names, leaves(g_k), leaves(g_p))}
+    if not all(np.isfinite(x) for x in rel.values()):
+        fail("training: a gradient leaf is not finite")
+    worst_leaf = max(rel, key=rel.get)
+    attn = {n: r for n, r in rel.items() if n.split("/")[-1] in
+            ("wq", "wk", "wv")}
+    print(f"training: first-step gradients, kernels vs plain: loss "
+          f"{loss_k.item():.6f} / {loss_p.item():.6f}; worst leaf {worst_leaf}"
+          f" {rel[worst_leaf]:.3e}; wq/wk/wv worst "
+          f"{max(attn.values()):.3e} (tol {GRAD_REL_TOL})")
+    if rel[worst_leaf] > GRAD_REL_TOL:
+        fail(f"training: gradient {worst_leaf} kernels vs plain "
+             f"{rel[worst_leaf]:.3e} > {GRAD_REL_TOL}")
+    del params, g_k, g_p, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) the main path, counted; (3) the plain path from the same start
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    rec_k = train(TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
+                  batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=1,
+                  device="cuda", opts=kernels_on)
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    peak_train = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": 2 * cfg.num_layers * TRAIN_STEPS,
+            "flash_attention_bwd": cfg.num_layers * TRAIN_STEPS}
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            fail(f"training: {name} launched {n} times in {TRAIN_STEPS} "
+                 f"steps, want {want.get(name, 0)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec_p = train(TRAIN_ARCH, reduced=False, steps=TRAIN_STEPS,
+                  batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=1,
+                  device="cuda", opts=plain)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_step = []
+    for key in ("loss_history", "grad_norm_history"):
+        for a, b in zip(rec_k[key], rec_p[key]):
+            if not (np.isfinite(a) and np.isfinite(b)):
+                fail(f"training: {key} not finite: {a}, {b}")
+            by_step.append(abs(a - b) / abs(b))
+            if by_step[-1] > TRAIN_REL_TOL:
+                fail(f"training: {key} kernels {rec_k[key]} vs plain "
+                     f"{rec_p[key]}: {by_step[-1]:.3e} > {TRAIN_REL_TOL}")
+
+    # (4) step time, tokens/s, peak memory, one step profiled
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = ST.init_train_state(cfg, gen, torch.float32, topts,
+                                device="cuda")
+    # params, m and v; the gradients (params' size) exist during a step
+    state_bytes = 4 * sum(p.numel() for p in leaves(state))
+    grad_bytes = 4 * sum(p.numel() for p in leaves(state["params"]))
+    batches = [_train_batch(torch, i) for i in range(4)]
+    state, _ = ST.train_step(state, batches[0], cfg, kernels_on, topts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        state, m = ST.train_step(state, b, cfg, kernels_on, topts)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (len(batches) - 1)
+    peak_step = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = ST.train_step(state, batches[0], cfg, kernels_on, topts)
+        torch.cuda.synchronize()
+        wall_traced = time.perf_counter() - t0
+    by_name = _device_kernels(torch, prof)
+    busy = sum(v[0] for v in by_name.values())
+    groups = {"flash forward": "flash_attention_kernel",
+              "flash backward": "flash_attention_bwd"}
+    by_group = {g: sum(v[0] for k, v in by_name.items() if pat in k)
+                for g, pat in groups.items()}
+    gemm = [k for k in by_name if any(w in k.lower() for w in (
+        "gemm", "xmma", "cutlass", "nvjet", "sm90_"))
+        and not any(pat in k for pat in groups.values())]
+    by_group["GEMMs"] = sum(by_name[k][0] for k in gemm)
+    by_group["other"] = busy - sum(by_group.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    report = {
+        "arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "dtype": "float32", "remat": True, "steps": TRAIN_STEPS,
+        "loss_kernels": rec_k["loss_history"],
+        "loss_plain": rec_p["loss_history"],
+        "grad_norm_kernels": rec_k["grad_norm_history"],
+        "grad_norm_plain": rec_p["grad_norm_history"],
+        "max_rel_diff_by_step": max(by_step),
+        "first_step_grad_rel": {"worst": [worst_leaf, rel[worst_leaf]],
+                                "wq_wk_wv_worst": max(attn.values())},
+        "launches_in_main_path": counts,
+        "train_wall_s": [rec_k["wall_s"], rec_p["wall_s"]],
+        "step_s": step_s, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+        "state_bytes": state_bytes, "grad_bytes": grad_bytes,
+        "peak_bytes_train_run": peak_train,
+        "peak_bytes_timed_steps": peak_step,
+        "traced_step_wall_ms": wall_traced * 1e3, "device_busy_ms": busy,
+        "device_idle_share": 1 - busy / (wall_traced * 1e3),
+        "device_ms_by_group": by_group,
+        "top_device_kernels_ms": [(k[:70], round(v[0], 4), v[1])
+                                  for k, v in top]}
+
+    # (5) the train state through the port's checkpoint and back
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(path, state, cfg,
+                                   meta={"arch": TRAIN_ARCH})
+        t1 = time.perf_counter()
+        back = checkpoint.restore_checkpoint(path, state, cfg)
+        t2 = time.perf_counter()
+        report["checkpoint"] = {"bytes": os.path.getsize(path),
+                                "save_s": t1 - t0, "restore_s": t2 - t1}
+    if not all(torch.equal(a, b) for a, b in zip(leaves(state),
+                                                 leaves(back))):
+        fail("training: the restored train state differs from the saved")
+    print("training report: " + json.dumps(report))
+    del state, back, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_refusals(torch, wrappers: dict) -> None:
+    """Phase 9c: the SSD and RG-LRU kernels have no backward kernel, so
+    their dispatch refuses CUDA inputs that require grad (and launches
+    nothing)."""
+    from repro_torch.kernels import ops
+    mk = lambda *s: torch.randn(s, device="cuda", requires_grad=True)
+    calls = {"ssd_scan": lambda: ops.ssd_scan(
+                 mk(1, 32, 2, 16), mk(1, 32, 2).abs(), -mk(2).abs(),
+                 mk(1, 32, 1, 16), mk(1, 32, 1, 16), 32),
+             "rglru_scan": lambda: ops.rglru_scan(mk(1, 8, 64), mk(1, 8, 64)),
+             "rglru_gated_scan": lambda: ops.rglru_gated_scan(
+                 mk(1, 8, 64), mk(1, 8, 64), mk(1, 8, 64), mk(1, 8, 64),
+                 mk(64))}
+    for name, call in calls.items():
+        before = wrappers[name].launches
+        try:
+            call()
+        except ValueError as e:
+            if "use_kernels=False" not in str(e):
+                fail(f"{name} under grad: unexpected refusal {e}")
+        else:
+            fail(f"{name} ran on CUDA inputs that require grad")
+        if wrappers[name].launches != before:
+            fail(f"{name} launched while refusing grad")
+    print("ssd_scan, rglru_scan and rglru_gated_scan refuse grad on the card")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1511,16 +1905,20 @@ def main() -> None:
     from repro_torch.kernels import ssd_scan as ssd
 
     # 2) build
-    build_kernels({"flash_attention": fa, "ssd_scan": ssd, "rglru_scan": rg})
+    build_kernels({"flash_attention": fa, "flash_attention_bwd": fa,
+                   "ssd_scan": ssd, "rglru_scan": rg})
     wrappers = {"flash_attention": fa.flash_attention,
                 "ssd_scan": ssd.ssd_scan, "rglru_scan": rg.rglru_scan,
-                "rglru_gated_scan": rg.rglru_gated_scan}
+                "rglru_gated_scan": rg.rglru_gated_scan,
+                "flash_attention_bwd": fa.flash_attention_bwd}
 
-    # 3-4) each kernel against its plain version, and its times
+    # 3-4) each kernel against its plain version, and its times; 9a) the
+    # flash backward's
     records = {"flash_attention": check_flash(torch, fa, ref),
                "ssd_scan": check_ssd(torch, ssd, ref),
                "rglru_scan": check_rglru(torch, rg, ref),
-               "rglru_gated_scan": check_rglru_gated(torch, rg, ref)}
+               "rglru_gated_scan": check_rglru_gated(torch, rg, ref),
+               "flash_attention_bwd": check_flash_bwd(torch, fa, ref)}
 
     # 5) full-width models, kernel path against the plain path; the flash
     # launches of the paths no served model runs are kept by path
@@ -1566,6 +1964,14 @@ def main() -> None:
             per_call = prof["device_ms_per_call"][name]
             records[name].setdefault("device_ms", per_call)
             records[name].setdefault("device_ms_by_path", {})[arch] = per_call
+
+    # 9b-c) training, the served models freed: the main path's launches
+    # join each kernel's sum and its paths
+    counts = check_training(torch, fa, wrappers)
+    for name, n in counts.items():
+        records[name]["launches"] += n
+        records[name]["launches_by_path"][f"{TRAIN_ARCH} train"] = n
+    check_refusals(torch, wrappers)
     print(json.dumps({"vgg": vgg_report}))
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}))

@@ -9,6 +9,15 @@ dimension), so layer ``r * p + j`` is ``scan/[j]/...[r]``; leaves under
 ``rem/[i]`` are layer ``n_full * p + i``. ``nonparam_ln`` norms have no
 leaves. The port's layout is described in ``repro_torch.models.model``.
 
+``save_checkpoint`` and ``restore_checkpoint`` write and read that format
+for any tree holding parameter trees, such as a train state
+``{"params": ..., "opt": {"m": ..., "v": ..., "step": ...}}``: a path
+``.../layers/<l>/...`` maps to ``.../scan/[j]/...`` (stacked over the
+repeats) or ``.../rem/[i]/...`` as above, every other path is its own key
+(``opt/step``), so the reference's ``restore_checkpoint`` reads the port's
+train state into ``init_train_state``'s structure and the port reads the
+reference's.
+
 The SSD mixer's ``A_log``, ``D`` and ``dt_bias`` and the RG-LRU mixer's
 ``lam`` are fp32 in the reference whatever the parameters' dtype
 (``repro.models.ssm.init_ssd``, ``repro.models.rglru.init_rglru``); both
@@ -16,9 +25,10 @@ The SSD mixer's ``A_log``, ``D`` and ``dt_bias`` and the RG-LRU mixer's
 """
 from __future__ import annotations
 
+import json
 import math
 import os
-from typing import Mapping, Union
+from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -27,6 +37,7 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import check_kind
 from repro_torch.models.rglru import RG_C
 from repro_torch.models.ssm import N_GROUPS
+from repro_torch.tree import items, map_tree
 
 FP32_LEAVES = ("A_log", "D", "dt_bias", "lam")
 
@@ -215,3 +226,73 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         return (w * _init_std(cfg, path)).to(device=device, dtype=ldtype)
 
     return _map_tree(leaf, param_shapes(cfg))
+
+
+def _tree_key(cfg: ArchConfig, path: str) -> tuple[str, int | None]:
+    """Port path ``<prefix>/layers/<l>/...`` -> (npz key ``<prefix>/scan/[j]
+    /...`` or ``<prefix>/rem/[i]/...``, repeat index); any other path is
+    its own key."""
+    parts = path.split("/")
+    if "layers" not in parts:
+        return path, None
+    at = parts.index("layers")
+    key, repeat = _flat_key(cfg, "/".join(parts[at:]))
+    return "/".join(parts[:at] + [key]), repeat
+
+
+def save_checkpoint(path: str, tree, cfg: ArchConfig,
+                    meta: Optional[dict] = None) -> None:
+    """Write ``tree`` (dicts and lists of tensors, e.g. a train state) as
+    the reference's flat npz: layer leaves stacked over the block pattern's
+    repeats under ``scan/[j]``, or under ``rem/[i]``, the rest by path.
+    ``cfg`` gives the pattern, which the port's per-layer list does not
+    carry. bf16 leaves are written as fp32 (numpy has no bf16; exact, and
+    both restores cast to the target's dtype). ``meta`` goes to
+    ``<path>.meta.json``."""
+    flat: dict[str, np.ndarray] = {}
+    stacked: dict[str, dict[int, np.ndarray]] = {}
+    for p, leaf in items(tree):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        arr = t.cpu().numpy()
+        key, repeat = _tree_key(cfg, p)
+        if repeat is None:
+            flat[key] = arr
+        else:
+            stacked.setdefault(key, {})[repeat] = arr
+    for key in list(stacked):
+        reps = stacked.pop(key)
+        flat[key] = np.stack([reps[r] for r in range(len(reps))])
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **flat)
+    if meta is not None:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(meta, f, indent=2, default=str)
+
+
+def restore_checkpoint(path: str, like, cfg: ArchConfig):
+    """Read a flat npz (the port's or the reference's ``save_checkpoint``)
+    into the structure of ``like``: each leaf's shape must match, and it
+    takes ``like``'s dtype and device."""
+    data = np.load(path if path.endswith(".npz") else path + ".npz")
+    walked = iter(items(like))
+    read: dict[str, np.ndarray] = {}   # each stacked key read once
+
+    def leaf(_):
+        p, t = next(walked)
+        key, repeat = _tree_key(cfg, p)
+        if key not in data:
+            raise KeyError(f"checkpoint has no leaf {key!r} (for {p})")
+        if key not in read:
+            read[key] = np.asarray(data[key])
+        arr = read[key]
+        if repeat is not None:
+            arr = arr[repeat]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{key}: shape {arr.shape} != {tuple(t.shape)}")
+        # np.array, not ascontiguousarray, which makes a 0-d leaf 1-d
+        return torch.from_numpy(np.array(arr)).to(device=t.device,
+                                                  dtype=t.dtype)
+
+    return map_tree(leaf, like)

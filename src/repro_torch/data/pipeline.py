@@ -72,3 +72,14 @@ def make_batch(cfg: ArchConfig, shape: InputShape, seed: int = 0, *,
         out["token"] = ints(rng.integers(0, cfg.vocab_size, (B,)))
         out["pos"] = ints(min(128, shape.seq_len - 1))
     return out
+
+
+def synthetic_batch_iterator(cfg: ArchConfig, shape: InputShape, *,
+                             dtype: torch.dtype = torch.float32,
+                             start_seed: int = 0, device="cuda"):
+    """Endless deterministic stream of training batches: ``make_batch`` at
+    seeds start_seed, start_seed + 1, ..."""
+    seed = start_seed
+    while True:
+        yield make_batch(cfg, shape, seed=seed, dtype=dtype, device=device)
+        seed += 1

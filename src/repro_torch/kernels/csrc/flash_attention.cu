@@ -57,8 +57,12 @@
 //     0, 12, 24, 4, 16, 28, 8, 20, distinct with their 4 columns each;
 //   - the dynamic shared-memory opt-in (needed past 48 KB) is made once per
 //     instantiation and device, not on every launch;
-//   - the 14 arguments come through ctypes packed in one int64 array,
-//     which costs the host far less than fourteen converted arguments.
+//   - the arguments come through ctypes packed in one int64 array, which
+//     costs the host far less than converted arguments;
+//   - training asks for each row's log-sum-exp (an optional fp32 (B,H,S)
+//     output, the 15th argument): the backward kernel
+//     (flash_attention_bwd.cu) recomputes P from it. A null pointer, which
+//     the serving path passes, writes nothing more.
 // Shared memory: fp32 4·(8·(hd+4) + 2·32·(hd+4) + 2·32·hd) bytes, 44,672 at
 // hd 80, 70,784 at hd 128 and 140,416 at hd 256; bf16 2·(hd+8)·(64 + 4·32)
 // bytes. Head dims: 32, 64, 80, 128, 256, each a native instantiation.
@@ -181,8 +185,8 @@ __global__ void __launch_bounds__(kThreadsF, 1)
 flash_attention_kernel_f32(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int S, int Tk, int H, int K, int causal, int window,
-                           float scale) {
+                           float* __restrict__ lse, int S, int Tk, int H,
+                           int K, int causal, int window, float scale) {
   constexpr int QS = HD + kPadF;       // row stride of q_s and k_s (floats)
   constexpr int W = HD >= 80 ? 4 : HD / 32;  // output columns in runs of W
   constexpr int NRUN = HD / W;               // runs of a row
@@ -291,6 +295,9 @@ flash_attention_kernel_f32(const float* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < W; ++e) orow[32 * W * j + e] = acc[j][e] * inv;
   }
+  // m is the row's max (one value across the warp), l its sum of e^{s-m}
+  if (lse != nullptr && lane == 0 && r < nrows)
+    lse[((long long)b * H + h) * S + row0 + r] = m + logf(l);
 }
 
 // ---- bf16 on the tensor cores ----
@@ -325,9 +332,9 @@ __global__ void __launch_bounds__(kThreadsB, 1)
 flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
-                            __nv_bfloat16* __restrict__ o, int S, int Tk,
-                            int H, int K, int causal, int window,
-                            float scale) {
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int S, int Tk, int H,
+                            int K, int causal, int window, float scale) {
   using bf16 = __nv_bfloat16;
   constexpr int RS = HD + kPadB;  // row stride of q_s, k_s, v_s (bf16)
   constexpr int NT = kKeys / 8;   // 8-key column tiles of the scores
@@ -463,6 +470,15 @@ flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
     l[rr] += __shfl_xor_sync(kFull, l[rr], 1);
     l[rr] += __shfl_xor_sync(kFull, l[rr], 2);
   }
+  // the 4 threads of a fragment row hold its m and l alike
+  if (lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int rb = wrow + g + 8 * rr;
+      if (rb < nrows)
+        lse[((long long)b * H + h) * S + row0 + rb] = m[rr] + logf(l[rr]);
+    }
+  }
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int rb = wrow + g + 8 * rr;  // row within the block
@@ -495,9 +511,9 @@ int opt_in_once(Kernel kernel, long long smem, unsigned long long* done) {
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int Tk, int H, int K, int causal, int window,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int Tk, int H, int K, int causal,
+               int window, cudaStream_t stream) {
   static unsigned long long opted = 0;
   constexpr long long smem = smem_bytes_f32(HD);
   const int rc = opt_in_once(flash_attention_kernel_f32<HD>, smem, &opted);
@@ -505,15 +521,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid(B * H, (S + kRowsF - 1) / kRowsF);
   flash_attention_kernel_f32<HD><<<grid, kThreadsF, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, Tk, H, K,
-      causal, window, 1.0f / sqrtf((float)HD));
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Tk, H,
+      K, causal, window, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int S, int Tk, int H, int K, int causal, int window,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int Tk, int H, int K, int causal,
+                int window, cudaStream_t stream) {
   static unsigned long long opted = 0;
   constexpr long long smem = smem_bytes_bf16(HD);
   const int rc = opt_in_once(flash_attention_kernel_bf16<HD>, smem, &opted);
@@ -522,18 +538,20 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   using bf16 = __nv_bfloat16;
   flash_attention_kernel_bf16<HD><<<grid, kThreadsB, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), S, Tk, H, K, causal,
-      window, 1.0f / sqrtf((float)HD));
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, S, Tk, H, K,
+      causal, window, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
 // q, k, v, o: device pointers, 16-byte aligned, to contiguous (B,S,H,hd) /
 // (B,T,K,hd) / (B,T,K,hd) / (B,S,H,hd) arrays of fp32 (is_bf16 = 0) or bf16
-// (is_bf16 = 1); hd in {32, 64, 80, 128, 256}. Launches on `stream` and
-// returns a CUDA error code (0 = launched).
-int forward(const void* q, const void* k, const void* v, void* o, int B,
-            int S, int Tk, int H, int K, int hd, int causal, int window,
-            int is_bf16, void* stream) {
+// (is_bf16 = 1); hd in {32, 64, 80, 128, 256}. lse: null, or a contiguous
+// fp32 (B,H,S) array that receives each row's log-sum-exp of its scaled,
+// masked scores (what the backward recomputes P from). Launches on `stream`
+// and returns a CUDA error code (0 = launched).
+int forward(const void* q, const void* k, const void* v, void* o, float* lse,
+            int B, int S, int Tk, int H, int K, int hd, int causal,
+            int window, int is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || Tk <= 0 || K <= 0 || H % K != 0 ||
       (long long)B * H > 2147483647LL || (S + kRowsF - 1) / kRowsF > 65535 ||
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -543,32 +561,34 @@ int forward(const void* q, const void* k, const void* v, void* o, int B,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     switch (hd) {
-      case 32: return launch_bf16<32>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
-      case 64: return launch_bf16<64>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
-      case 80: return launch_bf16<80>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
-      case 128: return launch_bf16<128>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
-      case 256: return launch_bf16<256>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
+      case 32: return launch_bf16<32>(q, k, v, o, lse, B, S, Tk, H, K, causal, window, st);
+      case 64: return launch_bf16<64>(q, k, v, o, lse, B, S, Tk, H, K, causal, window, st);
+      case 80: return launch_bf16<80>(q, k, v, o, lse, B, S, Tk, H, K, causal, window, st);
+      case 128: return launch_bf16<128>(q, k, v, o, lse, B, S, Tk, H, K, causal, window, st);
+      case 256: return launch_bf16<256>(q, k, v, o, lse, B, S, Tk, H, K, causal, window, st);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (hd) {
-    case 32: return launch_f32<32>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
-    case 64: return launch_f32<64>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
-    case 80: return launch_f32<80>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
-    case 128: return launch_f32<128>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
-    case 256: return launch_f32<256>(q, k, v, o, B, S, Tk, H, K, causal, window, st);
+    case 32: return launch_f32<32>(q, k, v, o, lse, B, S, Tk, H, K, causal, window, st);
+    case 64: return launch_f32<64>(q, k, v, o, lse, B, S, Tk, H, K, causal, window, st);
+    case 80: return launch_f32<80>(q, k, v, o, lse, B, S, Tk, H, K, causal, window, st);
+    case 128: return launch_f32<128>(q, k, v, o, lse, B, S, Tk, H, K, causal, window, st);
+    case 256: return launch_f32<256>(q, k, v, o, lse, B, S, Tk, H, K, causal, window, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// The arguments of `forward` above packed in one int64 array, in its order
-// (pointers and the stream as addresses): ctypes passes one pointer far
-// more cheaply than fourteen converted arguments.
+// The arguments of `forward` above packed in one int64 array (pointers and
+// the stream as addresses): q, k, v, o, B, S, T, H, K, hd, causal, window,
+// is_bf16, stream, lse. ctypes passes one pointer far more cheaply than
+// fifteen converted arguments. lse = 0 (the serving path) writes nothing
+// more than the output.
 extern "C" int flash_attention_fwd(const long long* a) {
   auto p = [&](int i) { return reinterpret_cast<void*>(a[i]); };
-  return forward(p(0), p(1), p(2), p(3), (int)a[4], (int)a[5], (int)a[6],
-                 (int)a[7], (int)a[8], (int)a[9], (int)a[10], (int)a[11],
-                 (int)a[12], p(13));
+  return forward(p(0), p(1), p(2), p(3), static_cast<float*>(p(14)),
+                 (int)a[4], (int)a[5], (int)a[6], (int)a[7], (int)a[8],
+                 (int)a[9], (int)a[10], (int)a[11], (int)a[12], p(13));
 }

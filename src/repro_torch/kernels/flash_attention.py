@@ -1,20 +1,24 @@
-"""Wrapper of the hand-written CUDA flash-attention kernel
+"""Wrappers of the hand-written CUDA flash-attention kernels: the forward
 (``csrc/flash_attention.cu``), the port of the Pallas TPU kernel
-``repro.kernels.flash_attention.flash_attention``.
+``repro.kernels.flash_attention.flash_attention``, and its backward
+(``csrc/flash_attention_bwd.cu``), which the reference does not have (it
+differentiates its jnp path).
 
-The wrapper takes CUDA tensors only: it checks them, allocates the output,
-launches the kernel on the current stream of the tensors' device (which
-must be the current device) and raises if the launch is refused.
-``flash_attention.launches`` counts its launches, so a run can show that its
-path went through the kernel. The plain PyTorch version of the same function
-is ``kernels.ref.flash_attention_ref``; ``kernels.ops`` chooses between the
-two by the tensors' device.
+The wrappers take CUDA tensors only: they check them, allocate the outputs,
+launch on the current stream of the tensors' device (which must be the
+current device) and raise if a launch is refused. ``flash_attention.launches``
+and ``flash_attention_bwd.launches`` count their calls, so a run can show
+that its path went through the kernels. The plain PyTorch versions are
+``kernels.ref.flash_attention_ref`` (``flash_attention_fwd_ref`` with the
+log-sum-exp) and ``kernels.ref.flash_attention_bwd_ref``; ``kernels.ops``
+chooses by the tensors' device.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import struct
+from typing import Optional
 
 import torch
 
@@ -24,7 +28,9 @@ HEAD_DIMS = (32, 64, 80, 128, 256)   # each a native instantiation
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM_BYTES = 232_448            # 227 KB: the most one Hopper block may use
 KEYS_PER_TILE = 32
-_ARGS = struct.Struct("14q")         # flash_attention_fwd's packed arguments
+_ARGS = struct.Struct("15q")         # flash_attention_fwd's packed arguments
+_BWD_ARGS = struct.Struct("19q")     # flash_attention_bwd's
+BWD_TILE = 32                       # query rows and keys of a backward tile
 
 
 def smem_bytes(hd: int, dtype: torch.dtype = torch.float32) -> int:
@@ -38,6 +44,14 @@ def smem_bytes(hd: int, dtype: torch.dtype = torch.float32) -> int:
                 + 2 * KEYS_PER_TILE * hd)
 
 
+def smem_bytes_bwd(hd: int) -> int:
+    """Dynamic shared memory of one backward block (dkdv or dq), the same in
+    both dtypes: q, dO, k and v tiles of 32 fp32 rows padded by 4 floats,
+    the 32×33 P and dS tiles, and the tile's 32 lse and 32 Δ values."""
+    return 4 * (4 * BWD_TILE * (hd + 4) + 2 * BWD_TILE * (BWD_TILE + 1)
+                + 2 * BWD_TILE)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
@@ -46,10 +60,19 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    lib.flash_attention_bwd.argtypes = [ctypes.c_char_p]
+    lib.flash_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
 def build() -> None:
-    """Compile (if needed) and load the kernel now rather than at first
+    """Compile (if needed) and load both kernels now rather than at first
     launch."""
     _library()
+    _bwd_library()
 
 
 @functools.lru_cache(maxsize=256)
@@ -121,22 +144,38 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return dev.index, ptrs
 
 
+def _check_lse(lse: torch.Tensor, q: torch.Tensor) -> None:
+    B, S, H, _ = q.shape
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash_attention: lse must be a contiguous fp32 "
+                         f"({B}, {H}, {S}) tensor on {q.device}; got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(q·kᵀ/√hd + mask)·v on the GPU. q: (B,S,H,hd); k, v:
     (B,T,K,hd), contiguous CUDA tensors of one dtype (fp32 or bf16) on the
     current device, hd in ``HEAD_DIMS`` (launched as it is, never padded),
     H % K == 0. Queries are the last S of the T positions. Returns
-    (B,S,H,hd) in q's dtype."""
+    (B,S,H,hd) in q's dtype. ``lse``, a contiguous fp32 (B,H,S) tensor on
+    the same device, receives each row's log-sum-exp of its scaled, masked
+    scores (what ``flash_attention_bwd`` needs); None writes nothing
+    more."""
     index, (qp, kp, vp) = _check(q, k, v)
     (B, S, H, hd), (_, T, K, _) = q.shape, k.shape
+    if lse is not None:
+        _check_lse(lse, q)
     out = torch.empty_like(q)
-    # the 14 arguments packed as int64s: ctypes passes one buffer much
-    # faster than 14 converted arguments
+    # the 15 arguments packed as int64s: ctypes passes one buffer much
+    # faster than 15 converted arguments
     args = _ARGS.pack(
         qp, kp, vp, out.data_ptr(), B, S, T, H, K, hd, causal, window,
         q.dtype is torch.bfloat16,
-        torch._C._cuda_getCurrentRawStream(index))   # the current stream
+        torch._C._cuda_getCurrentRawStream(index),   # the current stream
+        0 if lse is None else lse.data_ptr())
     rc = _library().flash_attention_fwd(args)
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
@@ -146,3 +185,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def check_bwd_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, do: torch.Tensor) -> None:
+    """Everything the backward kernel needs of its inputs but their device:
+    the forward's checks on q, k, v, T == S (queries and keys at the same
+    positions, as in training), and o and dO shaped, typed and laid out as
+    q."""
+    check_shapes(q, k, v)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"flash_attention_bwd: T = {k.shape[1]} keys for "
+                         f"S = {q.shape[1]} queries; the backward kernel "
+                         "takes T == S only")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} is {t.dtype} "
+                             f"{tuple(t.shape)}; need q's {q.dtype} "
+                             f"{tuple(q.shape)}")
+        if not t.is_contiguous() or t.data_ptr() & 15:
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             "contiguous and start on 16 bytes")
+    hd = q.shape[3]
+    if smem_bytes_bwd(hd) > MAX_SMEM_BYTES:
+        raise ValueError(f"flash_attention_bwd: head_dim {hd} needs "
+                         f"{smem_bytes_bwd(hd)} bytes of shared memory; a "
+                         f"block has {MAX_SMEM_BYTES}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0):
+    """The gradient of ``flash_attention`` on the GPU: (dq, dk, dv) in the
+    inputs' dtype from q (B,S,H,hd), k, v (B,S,K,hd), the forward's output
+    o and its ``lse`` (B,H,S) fp32, and the output's gradient ``do``
+    (B,S,H,hd). The same checks as the forward, and T == S. Three launches
+    (Δ = rowsum(dO ∘ O), then dk and dv, then dq) on the current stream."""
+    index, (qp, kp, vp) = _check(q, k, v)
+    check_bwd_shapes(q, k, v, o, do)
+    _check_lse(lse, q)
+    if o.device != q.device or do.device != q.device:
+        raise ValueError(f"flash_attention_bwd: o on {o.device}, do on "
+                         f"{do.device}; need q's {q.device}")
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    args = _BWD_ARGS.pack(
+        qp, kp, vp, o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        B, S, H, K, hd, causal, window, q.dtype is torch.bfloat16,
+        torch._C._cuda_getCurrentRawStream(index))
+    rc = _bwd_library().flash_attention_bwd(args)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd: kernel launch failed with "
+                           f"CUDA error {rc}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -13,18 +13,21 @@ NEG_INF = -1e30
 RG_C = 8.0                      # the RG-LRU's gate constant c
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
-    """softmax(q·kᵀ/√hd + mask)·v. q: (B,S,H,hd); k, v: (B,T,K,hd) with
-    H % K == 0; queries are the last S of T positions. Computed in fp32,
-    returned in q's dtype. Masked scores are the finite -1e30, so a row
-    with no visible key (causal, T < S) is the mean of v."""
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """The type the plain versions compute in: fp32, or fp64 for fp64
+    inputs (so that ``torch.autograd.gradcheck`` can hold them)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                   window: int) -> torch.Tensor:
+    """q·kᵀ/√hd as (B, K, G, S, T), computed in fp32 (fp64 for fp64
+    inputs), the masked scores set to the finite -1e30."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
-    G = H // K
-    qg = q.reshape(B, S, K, G, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg.float(),
-                          k.float()) / math.sqrt(hd)
+    qg = q.reshape(B, S, K, H // K, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", _acc(qg),
+                          _acc(k)) / math.sqrt(hd)
     srange = torch.arange(S, device=q.device)
     trange = torch.arange(T, device=q.device)
     mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
@@ -33,10 +36,62 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= trange[None, :] <= srange[:, None] + off
     if window > 0:
         mask &= trange[None, :] > srange[:, None] + off - window
-    scores = torch.where(mask, scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkh->bskgh", w, v.float())
+    return torch.where(mask, scores, NEG_INF)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """softmax(q·kᵀ/√hd + mask)·v. q: (B,S,H,hd); k, v: (B,T,K,hd) with
+    H % K == 0; queries are the last S of T positions. Computed in fp32,
+    returned in q's dtype. Masked scores are the finite -1e30, so a row
+    with no visible key (causal, T < S) is the mean of v."""
+    B, S, H, hd = q.shape
+    w = torch.softmax(_masked_scores(q, k, causal, window), dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", w, _acc(v))
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0):
+    """``flash_attention_ref`` that also returns what the backward needs:
+    (out in q's dtype, lse (B, H, S) in fp32), lse the log-sum-exp of each
+    row's scaled, masked scores."""
+    B, S, H, hd = q.shape
+    scores = _masked_scores(q, k, causal, window)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkh->bskgh", w, _acc(v))
+    lse = torch.logsumexp(scores, dim=-1).reshape(B, H, S)
+    return out.reshape(B, S, H, hd).to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool = True, window: int = 0):
+    """The gradient of ``flash_attention_ref`` by its explicit formulas, the
+    function the backward kernel computes: Δ = rowsum(dO ∘ O),
+    P = exp(S·scale − lse), dV = Pᵀ dO, dP = dO Vᵀ, dS = P ∘ (dP − Δ),
+    dQ = dS K · scale and dK = dSᵀ Q · scale, dK and dV summed over each KV
+    head's H/K query heads. q, o, do: (B,S,H,hd); k, v: (B,T,K,hd); lse
+    (B,H,S) from the forward. Computed in fp32 (fp64 for fp64 inputs);
+    returns (dq, dk, dv) in the inputs' dtypes."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qg, og, dog = (_acc(t).reshape(B, S, K, G, hd) for t in (q, o, do))
+    kf, vf = _acc(k), _acc(v)
+    delta = (dog * og).sum(-1).permute(0, 2, 3, 1)             # (B,K,G,S)
+    p = torch.exp(_masked_scores(q, k, causal, window)
+                  - _acc(lse).reshape(B, K, G, S)[..., None])  # (B,K,G,S,T)
+    dv = torch.einsum("bkgst,bskgh->btkh", p, dog)
+    dp = torch.einsum("bskgh,btkh->bkgst", dog, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bkgst,btkh->bskgh", ds, kf) * scale
+    dk = torch.einsum("bkgst,bskgh->btkh", ds, qg) * scale
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

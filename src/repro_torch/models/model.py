@@ -27,6 +27,8 @@ embeddings plus sinusoidal positions (``frontend="audio"``).
 This port covers the block kinds in ``KINDS``. Modes:
   forward_hidden — full sequence, final-norm hidden states (an encoder)
                    and the MoE auxiliary loss
+  loss_fn        — cross-entropy over ``forward_hidden``'s logits plus the
+                   weighted MoE aux: the training objective
   prefill        — full sequence, returns last-position logits + cache
   decode_step    — one token per row against the cache (updated in place)
 """
@@ -37,6 +39,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.config import ArchConfig
@@ -49,7 +52,10 @@ class ModelOptions:
     ``use_kernels`` routes prefill attention, the prefill SSD scan and the
     RG-LRU of prefill and decode through the hand-written kernels
     (``kernels.ops``); unlike the reference it defaults to True, because
-    the kernels are what the port serves with. ``window_override > 0``
+    the kernels are what the port serves with. In training, flash
+    attention's gradient is a backward kernel too; the SSD and RG-LRU
+    kernels have no backward yet and refuse grad on the card, so train
+    those models with ``use_kernels=False``. ``window_override > 0``
     gives every full-attention (``attn``) mixer that sliding window (the
     reference's long-context option on dense models); with ``ring_cache``
     its cache is a ring of min(cache_len, window) slots, else the full
@@ -59,9 +65,11 @@ class ModelOptions:
     two are refused together. ``gqa_expand_kv`` repeats KV heads onto the
     query heads before full-sequence attention; it is for ``forward_hidden``
     only, since a prefill would hand back H-head K/V for a K-head decode
-    cache (``prefill`` refuses it for GQA models). ``remat`` is kept for
-    parity with the reference's options; the port has no training step, so
-    it changes nothing here. The reference's MoE sharding options
+    cache (``prefill`` refuses it for GQA models). ``remat``, under grad mode,
+    recomputes each block's activations in the backward instead of keeping
+    them (``torch.utils.checkpoint``; the reference's ``jax.checkpoint`` of
+    the scanned block body): training's memory for one more forward; it
+    changes nothing without grad. The reference's MoE sharding options
     (``moe_local_dispatch`` and the expert shard constraint) wait for the
     port's distributed layer."""
 
@@ -290,9 +298,15 @@ def apply_stack_full(params, x: torch.Tensor, cfg: ArchConfig,
     (0 without MoE blocks)."""
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = opts.remat and torch.is_grad_enabled()
     for p, kind in zip(params["layers"], cfg.layer_kinds):
-        x, aux_l, c = apply_block_full(p, x, cfg, kind, opts, want_cache,
-                                       cache_len)
+        if remat:
+            x, aux_l, c = checkpoint(apply_block_full, p, x, cfg, kind, opts,
+                                     want_cache, cache_len,
+                                     use_reentrant=False)
+        else:
+            x, aux_l, c = apply_block_full(p, x, cfg, kind, opts, want_cache,
+                                           cache_len)
         if aux_l is not None:
             aux = aux + aux_l
         caches.append(c)
@@ -307,6 +321,30 @@ def forward_hidden(params, batch: dict, cfg: ArchConfig, opts: ModelOptions):
     x = embed_inputs(params, batch, cfg)
     x, aux, _ = apply_stack_full(params, x, cfg, opts, want_cache=False)
     return layers.apply_norm(params["final_norm"], x, cfg), aux
+
+
+MOE_AUX_WEIGHT = 0.01
+
+
+def loss_fn(params, batch: dict, cfg: ArchConfig, opts: ModelOptions):
+    """Cross-entropy LM (or masked-prediction) loss over
+    ``forward_hidden``'s logits in fp32, labels < 0 ignored, averaged over
+    the n = max(#valid, 1) labelled positions, plus ``MOE_AUX_WEIGHT`` times
+    the MoE aux. Returns (total, {"ce_loss", "aux_loss", "tokens"}), fp32
+    0-d tensors, as ``repro.models.model.loss_fn``."""
+    hidden, aux = forward_hidden(params, batch, cfg, opts)
+    logits = layers.unembed(params["embed"], hidden, cfg).float()
+    labels = batch["labels"].long()
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    n = torch.clamp(valid.sum(), min=1)
+    loss = nll.sum() / n
+    total = loss + MOE_AUX_WEIGHT * aux
+    return total, {"ce_loss": loss, "aux_loss": aux,
+                   "tokens": n.float()}
 
 
 def check_cache_options(cfg: ArchConfig, opts: ModelOptions) -> None:

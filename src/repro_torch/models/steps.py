@@ -1,12 +1,114 @@
-"""Step functions for serving: prefill, decode and prefill-into-slot,
-ported from ``repro.models.steps``. PyTorch runs eagerly, so there is no
-jit wrapper; there is no train step in this slice."""
+"""Step functions: train (with microbatch gradient accumulation), prefill,
+decode and prefill-into-slot, ported from ``repro.models.steps``. PyTorch
+runs eagerly, so there is no jit wrapper.
+
+``train_step`` differentiates ``model.loss_fn`` with ``torch.autograd``:
+with the kernels on, flash attention's gradient is the CUDA backward kernel
+(``kernels.ops.FlashAttention``), and the SSD and RG-LRU kernels, which
+have no backward yet, refuse grad on the card (train those models with
+``ModelOptions(use_kernels=False)``). The update is AdamW in place. The
+reference's ``TrainOptions.batch_axes`` (a mesh sharding constraint) waits
+for the port's distributed layer; the port trains on one device. The
+serving steps run under ``torch.no_grad()``.
+"""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
+from repro_torch import checkpoint
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               cosine_schedule)
+from repro_torch.tree import leaves, map_tree
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainOptions:
+    microbatches: int = 1            # gradient-accumulation steps per batch
+    opt: AdamWConfig = AdamWConfig()
+    schedule_total: int = 10_000
+    schedule_warmup: int = 100
+
+
+def init_train_state(cfg: ArchConfig, generator: torch.Generator, dtype,
+                     topts: TrainOptions, device="cuda") -> dict:
+    """{"params": ``checkpoint.init_params`` drawn on ``generator``, "opt":
+    ``adamw_init``}, on ``device``."""
+    params = checkpoint.init_params(cfg, generator, dtype, device=device)
+    return {"params": params, "opt": adamw_init(params, topts.opt)}
+
+
+def _split_microbatches(batch: dict, n: int) -> dict:
+    """(B, ...) -> (n, B/n, ...) for every tensor with a batch dimension; a
+    0-d tensor is repeated n times."""
+    def split(x):
+        if x.dim() == 0:
+            return x.expand(n)
+        B = x.shape[0]
+        if B % n:
+            raise ValueError(f"batch {B} not divisible by {n} microbatches")
+        return x.reshape(n, B // n, *x.shape[1:])
+    return {k: split(v) for k, v in batch.items()}
+
+
+def compute_grads(params, batch: dict, cfg: ArchConfig,
+                  opts: M.ModelOptions, topts: TrainOptions):
+    """The loss, its metrics and the gradient of every parameter (a tree
+    shaped as ``params``), averaged over ``topts.microbatches`` as the
+    reference does: with one microbatch the gradients are in the
+    parameters' dtype and the metrics are ``loss_fn``'s; with n, fp32 sums
+    of the n gradients and losses times 1/n, and no other metric. A leaf the
+    loss does not reach gets a zero gradient, as ``jax.grad`` gives."""
+    # detached aliases: the caller's tensors keep requires_grad False
+    live = map_tree(lambda p: p.detach().requires_grad_(), params)
+    flat = leaves(live)
+
+    def grad_of(b):
+        loss, metrics = M.loss_fn(live, b, cfg, opts)
+        gs = torch.autograd.grad(loss, flat, allow_unused=True)
+        gs = [torch.zeros_like(p) if g is None else g
+              for p, g in zip(flat, gs)]
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, gs
+
+    if topts.microbatches <= 1:
+        loss, metrics, grads = grad_of(batch)
+    else:
+        mb = _split_microbatches(batch, topts.microbatches)
+        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in flat]
+        loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+        for i in range(topts.microbatches):
+            l, _, gs = grad_of({k: v[i] for k, v in mb.items()})
+            for acc, g in zip(grads, gs):
+                acc.add_(g)
+            loss = loss + l
+        k = 1.0 / topts.microbatches
+        grads = [g * k for g in grads]
+        loss = loss * k
+        metrics = {}
+    it = iter(grads)
+    return loss, metrics, map_tree(lambda _: next(it), params)
+
+
+def train_step(state: dict, batch: dict, cfg: ArchConfig,
+               opts: M.ModelOptions, topts: TrainOptions):
+    """One optimizer step; gradients averaged over ``topts.microbatches``.
+    The learning-rate scale is read at the step counter before the update.
+    The parameters and moments are updated in place. Returns
+    (state, {"loss", "grad_norm", and with one microbatch "ce_loss",
+    "aux_loss", "tokens"})."""
+    params = state["params"]
+    loss, metrics, grads = compute_grads(params, batch, cfg, opts, topts)
+    lr_scale = cosine_schedule(state["opt"]["step"],
+                               warmup=topts.schedule_warmup,
+                               total=topts.schedule_total)
+    params, opt, opt_metrics = adamw_update(params, grads, state["opt"],
+                                            topts.opt, lr_scale)
+    return {"params": params, "opt": opt}, {"loss": loss, **opt_metrics,
+                                            **metrics}
 
 
 @torch.no_grad()

@@ -1,6 +1,7 @@
-"""The CUDA kernels (flash attention, SSD chunked scan, RG-LRU scan) against
-their plain PyTorch versions, on the GPU, and the MoE layer's determinism
-there. Every test here needs a CUDA device of compute capability >= 9.0
+"""The CUDA kernels (flash attention and its backward, SSD chunked scan,
+RG-LRU scan) against their plain PyTorch versions, on the GPU, the MoE
+layer's determinism there, and the refusal of the kernels that have no
+backward under grad. Every test here needs a CUDA device of compute capability >= 9.0
 (Hopper) and skips without one; this file imports no jax, so it runs on a
 machine that has only PyTorch and the CUDA toolkit:
 
@@ -494,3 +495,115 @@ def test_rglru_gated_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError):
             rg.rglru_gated_scan(*args, **kw)
     assert rg.rglru_gated_scan.launches == before
+
+
+BWD_SHAPES = [
+    # B, S, H, hd, K, causal, window
+    (8, 256, 16, 128, 16, True, 0),    # olmo-1b's training shape
+    (2, 256, 32, 128, 4, True, 0),     # yi-9b: 8-way GQA
+    (1, 512, 4, 256, 1, True, 128),    # hd 256 MQA, the window bites
+    (1, 500, 4, 80, 4, False, 0),      # hd 80 encoder, ragged last tile
+    (2, 37, 4, 32, 2, True, 0),        # ragged causal at hd 32
+    (2, 100, 4, 64, 2, True, 24),      # window smaller than a tile
+]
+
+
+def _bwd_inputs(shape, dtype, device, seed=0):
+    B, S, H, hd, K, _, _ = shape
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=torch.float32
+                                    ).to(device=device, dtype=dtype)
+    return mk(B, S, H, hd), mk(B, S, K, hd), mk(B, S, K, hd), mk(B, S, H, hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_backward_kernel_matches_plain_version(cuda, shape, dtype):
+    """The forward's lse and the backward's dq, dk, dv against the plain
+    versions on the same inputs, and two backward runs bit-equal. bf16:
+    both sides compute in fp32 from the same bf16 inputs and round once."""
+    q, k, v, do = _bwd_inputs(shape, dtype, cuda)
+    causal, window = shape[5], shape[6]
+    B, S, H = q.shape[:3]
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+    o = fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    _, lse_ref = ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                             window=window)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    for g, w, a in zip(got, want, again):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(g.isfinite().all())
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+        assert torch.equal(g, a)
+
+
+def test_flash_autograd_launches_both_kernels(cuda):
+    """``ops.flash_attention`` under grad goes through the Function: one
+    forward launch (with lse) and one backward launch, and its gradients
+    are the plain versions'."""
+    q, k, v, do = _bwd_inputs((2, 64, 4, 64, 2, True, 0), torch.float32,
+                              cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = ops.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert fa.flash_attention.launches == fwd + 1
+    assert fa.flash_attention_bwd.launches == bwd + 1
+    o, lse = ref.flash_attention_fwd_ref(q, k, v, causal=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():                 # the serving path: forward only
+        ops.flash_attention(*leaves, causal=True)
+    assert fa.flash_attention_bwd.launches == bwd + 1
+
+
+def test_flash_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, do = _bwd_inputs((1, 64, 4, 64, 2, True, 0), torch.float32,
+                              cuda)
+    lse = torch.empty((1, 4, 64), dtype=torch.float32, device=cuda)
+    o = fa.flash_attention(q, k, v, lse=lse)
+    before = fa.flash_attention_bwd.launches
+    bad = [
+        (q[:, :32].contiguous(), k, v, o[:, :32].contiguous(), lse,
+         do[:, :32].contiguous()),                          # T != S
+        (q, k, v, o, lse[:, :2].contiguous(), do),          # lse shape
+        (q, k, v, o, lse.double(), do),                     # lse dtype
+        (q, k, v, o.bfloat16(), lse, do),                   # o dtype
+        (q, k, v, o, lse, do.transpose(1, 2)),              # dO layout
+        (q.cpu(), k.cpu(), v.cpu(), o.cpu(), lse.cpu(), do.cpu()),  # CPU
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            fa.flash_attention_bwd(*args)
+    assert fa.flash_attention_bwd.launches == before
+
+
+def test_kernels_without_backward_refuse_grad(cuda):
+    """The SSD and RG-LRU kernels have no backward kernel: under grad their
+    dispatch raises on CUDA inputs that require grad (and still runs under
+    no_grad or when nothing requires grad)."""
+    x, dt, A, Bm, Cm = _ssd_inputs(SSD_SHAPES[0], torch.float32, cuda)
+    a, b = _rg_inputs(RGLRU_SHAPES[2], cuda)
+    *gated, lam, _ = _gated_inputs((2, 5, 64, False), torch.float32, cuda)
+    calls = [
+        (ops.ssd_scan, (x, dt, A, Bm, Cm, 32)),
+        (ops.rglru_scan, (a, b)),
+        (ops.rglru_gated_scan, (*gated, lam)),
+    ]
+    for fn, args in calls:
+        fn(*args)                                  # nothing requires grad
+        wanting = [t.requires_grad_() if i == 0 else t
+                   for i, t in enumerate(args)]
+        with pytest.raises(ValueError, match="use_kernels=False"):
+            fn(*wanting)
+        with torch.no_grad():
+            fn(*wanting)
