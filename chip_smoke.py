@@ -124,10 +124,14 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    500, 16, 80) and a ragged causal S = 37 at hd 32: dq, dk, dv within
    fp32 1e-4 / bf16 2e-2, the forward's lse within 1e-4 of the plain
    log-sum-exp, every output finite, two runs bit-equal, and a control
-   (dv with a key tile zeroed) that must fail the comparison; at olmo-1b's
-   shape its times (back to back, device alone, host enqueue, the forward
-   with lse, the plain version, the bound) and, as a yardstick only,
-   ``scaled_dot_product_attention``'s forward and backward in fp32. (b)
+   (dv with a key tile zeroed) that must fail the comparison; each of the
+   10 instantiations' registers and spills from nvcc's report (a spill
+   fails) and its shared memory against the wrapper's ``smem_bytes_bwd``;
+   at olmo-1b's shape, in fp32 and in bf16, its times (back to back,
+   device alone by kernel, host enqueue, the plain version, the bound and
+   its share), the forward with lse (back to back, device alone, its
+   bound) and, as a yardstick only, ``scaled_dot_product_attention``'s
+   forward and backward device times in the same dtype. (b)
    Full-width olmo-1b in fp32 (batch 8 × 256, remat), the served models
    freed: each gradient leaf at the first step, kernels against plain;
    the main path ``launch.train.train`` for 4 steps with every count set
@@ -1528,15 +1532,114 @@ def check_vgg(torch) -> dict:
     return report
 
 
+def bwd_ptxas(torch) -> dict:
+    """Phase 9a: each backward instantiation's registers and spill bytes
+    (the Δ, dkdv and dq kernels at each dtype and head dim), read from the
+    compiler's ``-Xptxas -v`` report of the build. Fails if a kernel
+    spills, or if the built kernels' shared memory differs from what the
+    wrapper's ``smem_bytes_bwd`` says."""
+    import re
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    log = _build.library_path("flash_attention_bwd").with_suffix(".log")
+    found, cur = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"flash_attention_bwd_(delta|dkdv|dq)I(f|13__nv_bfloat16)"
+                      r"Li(\d+)E", line)
+        if "Compiling entry" in line:
+            cur = m.groups() if m else None
+        elif cur is not None:
+            rec = found.setdefault(
+                (("float32" if cur[1] == "f" else "bfloat16"), int(cur[2])),
+                {}).setdefault(cur[0], [0, 0])
+            if (r := re.search(r"Used (\d+) registers", line)):
+                rec[0] = int(r.group(1))
+            if (r := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line)):
+                rec[1] = int(r.group(1)) + int(r.group(2))
+    if len(found) != 2 * len(fa.HEAD_DIMS) or any(
+            len(k) != 3 for k in found.values()):
+        fail(f"flash_attention_bwd: the ptxas report lists {sorted(found)}, "
+             "not the 10 instantiations of 3 kernels")
+    for (dtype, hd), ks in sorted(found.items()):
+        smem = fa.smem_bytes_bwd(hd, getattr(torch, dtype))
+        built = fa.built_smem_bytes_bwd(hd, getattr(torch, dtype))
+        print(f"ptxas flash_attention_bwd {dtype} hd {hd}: " + ", ".join(
+            f"{k} {r} registers {sp} B spilled"
+            for k, (r, sp) in sorted(ks.items())) +
+            f"; shared memory {built} B")
+        if any(sp for _, sp in ks.values()):
+            fail(f"flash_attention_bwd {dtype} hd {hd} spills: {ks}")
+        if built != smem:
+            fail(f"flash_attention_bwd {dtype} hd {hd}: the kernel uses "
+                 f"{built} B of shared memory, smem_bytes_bwd says {smem}")
+    return {f"{d} hd{h}": ks for (d, h), ks in sorted(found.items())}
+
+
+def time_flash_bwd(torch, fa, ref, dtype) -> dict:
+    """Phase 9a: at olmo-1b's training shape in ``dtype``, the backward's
+    time back to back, alone on the device (by kernel) and its host
+    enqueue; the forward with lse back to back and alone, and its bound;
+    the plain backward; the bound; and, as a yardstick only,
+    ``scaled_dot_product_attention``'s forward and backward."""
+    B, S, H, hd, K, causal, window = BWD_MAIN_SHAPE
+    name = str(dtype)[6:]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, do = (torch.randn((B, S, H, hd), generator=gen,
+                         device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, K, hd), generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    fwd = lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
+                                     lse=lse)
+    o = fwd()
+    run = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+    ms = cuda_ms(torch, run, iters=50, warmup=5)
+    host_ms = host_enqueue_ms(torch, run, iters=50, warmup=5)
+    dev_ms, per_kernel = device_ms(torch, run, "flash_attention_bwd",
+                                   calls=20)
+    fwd_lse_ms = cuda_ms(torch, fwd, iters=50, warmup=5)
+    fwd_dev_ms, _ = device_ms(torch, fwd, "flash_attention_kernel", calls=20)
+    fwd_bound_ms, fwd_bound_by = attention_bound_ms(
+        (B, S, H, hd, K, S, causal, window), name)
+    plain_ms = cuda_ms(torch, lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=causal, window=window), iters=10,
+        warmup=2)
+    bound_ms, bound_by = attention_bwd_bound_ms(BWD_MAIN_SHAPE, name)
+    sdpa = sdpa_fwd_bwd_ms(torch, q, k, v, do)
+    print(f"flash_attention_bwd {BWD_MAIN_SHAPE} {name}: kernel {ms:.5f} ms "
+          f"back to back (device {dev_ms:.6f} ms: "
+          f"{json.dumps({k[:60]: round(t, 6) for k, t in per_kernel.items()})}"
+          f"; host enqueue {host_ms:.6f} ms), plain {plain_ms:.5f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by}), {bound_ms / dev_ms:.1%} of it; "
+          f"the forward with lse {fwd_lse_ms:.5f} ms back to back, "
+          f"{fwd_dev_ms:.6f} device, bound {fwd_bound_ms:.6f} ms "
+          f"({fwd_bound_by}); sdpa (yardstick) {json.dumps(sdpa)}")
+    return {"ms": ms, "device_ms_alone": dev_ms,
+            "device_ms_by_kernel": per_kernel, "host_enqueue_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": sdpa["backward_device_ms"],
+            "library_fwd_bwd_ms": sdpa["fwd_bwd_ms"],
+            "forward_with_lse_ms": fwd_lse_ms,
+            "forward_with_lse_device_ms": fwd_dev_ms,
+            "forward_bound_ms": fwd_bound_ms,
+            "library_forward_device_ms": sdpa["forward_device_ms"]}
+
+
 def check_flash_bwd(torch, fa, ref) -> dict:
     """Phase 9a: the flash backward kernel against its plain version at
     ``BWD_SHAPES`` in fp32 and bf16 (dq, dk, dv within fp32 1e-4 / bf16
-    2e-2: fp32 sums in other orders; in bf16 both sides compute in fp32
-    from the same bf16 inputs and round once), the forward's lse against
-    the plain log-sum-exp, every output finite, two runs bit-equal, and a
-    control: dv with one key tile zeroed must fail the same comparison.
-    Times at olmo-1b's training shape in fp32. Returns the kernel's record
-    for the final JSON line."""
+    2e-2: fp32 sums in other orders; in bf16 the kernel rounds P and dS to
+    bf16 before the products that take them, the plain version computes
+    in fp32 from the same bf16 inputs, and both round their outputs once),
+    the forward's lse against the plain log-sum-exp, every output finite,
+    two runs bit-equal, and a control: dv with one key tile zeroed must
+    fail the same comparison. Each instantiation's registers and spills
+    (none allowed). Times at olmo-1b's training shape in fp32 and bf16.
+    Returns the kernel's record for the final JSON line."""
+    ptxas = bwd_ptxas(torch)
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
@@ -1575,34 +1678,9 @@ def check_flash_bwd(torch, fa, ref) -> dict:
     print("flash_attention_bwd: every shape within tolerance, bit-equal on "
           "repeat; each control (a zeroed key tile of dv) failed the check")
 
-    # times at olmo-1b's training shape, fp32
-    B, S, H, hd, K, causal, window = BWD_MAIN_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    q, do = (torch.randn((B, S, H, hd), generator=gen, device="cuda")
-             for _ in range(2))
-    k, v = (torch.randn((B, S, K, hd), generator=gen, device="cuda")
-            for _ in range(2))
-    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
-    o = fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
-    run = lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                         window=window)
-    ms = cuda_ms(torch, run, iters=50, warmup=5)
-    host_ms = host_enqueue_ms(torch, run, iters=50, warmup=5)
-    dev_ms, per_kernel = device_ms(torch, run, "flash_attention_bwd",
-                                   calls=20)
-    fwd_lse_ms = cuda_ms(torch, lambda: fa.flash_attention(
-        q, k, v, causal=causal, window=window, lse=lse), iters=50, warmup=5)
-    plain_ms = cuda_ms(torch, lambda: ref.flash_attention_bwd_ref(
-        q, k, v, o, lse, do, causal=causal, window=window), iters=10,
-        warmup=2)
-    bound_ms, bound_by = attention_bwd_bound_ms(BWD_MAIN_SHAPE, "float32")
-    sdpa = sdpa_fwd_bwd_ms(torch, q, k, v, do)
-    print(f"flash_attention_bwd {BWD_MAIN_SHAPE} float32: kernel {ms:.5f} ms "
-          f"back to back (device {dev_ms:.6f} ms: "
-          f"{json.dumps({k[:60]: round(t, 6) for k, t in per_kernel.items()})}"
-          f"; host enqueue {host_ms:.6f} ms), forward with lse {fwd_lse_ms:.5f}"
-          f" ms, plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms "
-          f"({bound_by}); sdpa (yardstick) {json.dumps(sdpa)}")
+    # times at olmo-1b's training shape
+    t32 = time_flash_bwd(torch, fa, ref, torch.float32)
+    t16 = time_flash_bwd(torch, fa, ref, torch.bfloat16)
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": "src/repro/kernels/flash_attention.py:70",
@@ -1611,20 +1689,18 @@ def check_flash_bwd(torch, fa, ref) -> dict:
             "dtype": "float32",
             "max_abs_err": worst[(BWD_MAIN_SHAPE, "torch.float32")],
             "max_abs_err_all_shapes": max(worst.values()),
-            "ms": ms, "device_ms_alone": dev_ms,
-            "device_ms_by_kernel": per_kernel, "host_enqueue_ms": host_ms,
-            "forward_with_lse_ms": fwd_lse_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": sdpa["backward_device_ms"],
-            "library_fwd_bwd_ms": sdpa["fwd_bwd_ms"]}
+            **t32,
+            "bf16": {"max_abs_err": worst[(BWD_MAIN_SHAPE,
+                                           "torch.bfloat16")], **t16},
+            "ptxas": ptxas}
 
 
 def sdpa_fwd_bwd_ms(torch, q, k, v, do) -> dict:
     """``scaled_dot_product_attention`` (a yardstick only; the port never
-    calls it) forward and backward on the same fp32 MHA inputs, causal:
-    the pair back to back (CUDA events), and the backward's device time,
-    the profiler's kernels of a forward-and-backward call that a forward
-    alone does not launch."""
+    calls it) forward and backward on the same MHA inputs (fp32 or bf16),
+    causal: the pair back to back (CUDA events), the forward's device time,
+    and the backward's, the profiler's kernels of a forward-and-backward
+    call that a forward alone does not launch."""
     from torch.profiler import ProfilerActivity, profile
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -1648,6 +1724,8 @@ def sdpa_fwd_bwd_ms(torch, q, k, v, do) -> dict:
     bwd = {k: t[0] / 10 for k, t in kernels["fwd_bwd"].items()
            if k not in kernels["fwd"]}
     return {"fwd_bwd_ms": fwd_bwd_ms,
+            "forward_device_ms": sum(t[0] for t in kernels["fwd"].values())
+            / 10,
             "backward_device_ms": sum(bwd.values()) if bwd else None,
             "backward_kernels": sorted(k[:60] for k in bwd)}
 

@@ -30,7 +30,6 @@ MAX_SMEM_BYTES = 232_448            # 227 KB: the most one Hopper block may use
 KEYS_PER_TILE = 32
 _ARGS = struct.Struct("15q")         # flash_attention_fwd's packed arguments
 _BWD_ARGS = struct.Struct("19q")     # flash_attention_bwd's
-BWD_TILE = 32                       # query rows and keys of a backward tile
 
 
 def smem_bytes(hd: int, dtype: torch.dtype = torch.float32) -> int:
@@ -44,12 +43,28 @@ def smem_bytes(hd: int, dtype: torch.dtype = torch.float32) -> int:
                 + 2 * KEYS_PER_TILE * hd)
 
 
-def smem_bytes_bwd(hd: int) -> int:
-    """Dynamic shared memory of one backward block (dkdv or dq), the same in
-    both dtypes: q, dO, k and v tiles of 32 fp32 rows padded by 4 floats,
-    the 32×33 P and dS tiles, and the tile's 32 lse and 32 Δ values."""
-    return 4 * (4 * BWD_TILE * (hd + 4) + 2 * BWD_TILE * (BWD_TILE + 1)
-                + 2 * BWD_TILE)
+def smem_bytes_bwd(hd: int, dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of the larger of the two backward blocks (dkdv
+    and dq), as the kernel lays them out with the tiles its ``Tiles`` sets:
+    a dkdv block's keys and the query rows of its step, a dq block's query
+    rows and the keys of its step. dkdv: its k and v tile, a ring of two
+    q/dO tiles, P and dS, and two buffers of lse and Δ; dq: its q and dO
+    tile, a ring of two k/v tiles, dS (fp32: dSᵀ, which first holds Pᵀ),
+    its lse and Δ. Rows are padded by 4 floats (fp32) or 8 values (bf16);
+    P and dS rows by 8 (fp32 dSᵀ rows by 4)."""
+    if dtype == torch.bfloat16:
+        kv_keys, kv_rows, q_rows, q_keys = (32 if hd == 256 else 64), 32, 64, 32
+        rs, es = hd + 8, 2
+        ds = q_rows * (q_keys + 8)
+    else:
+        kv_keys, kv_rows, q_rows, q_keys = ((32, 32, 32, 32) if hd == 256
+                                            else (64, 32, 64, 64))
+        rs, es = hd + 4, 4
+        ds = q_keys * (q_rows + 4)
+    dkdv = es * (2 * kv_keys * rs + 4 * kv_rows * rs
+                 + 2 * kv_rows * (kv_keys + 8)) + 16 * kv_rows
+    dq = es * (2 * q_rows * rs + 4 * q_keys * rs + ds) + 8 * q_rows
+    return max(dkdv, dq)
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,7 +80,16 @@ def _bwd_library() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     lib.flash_attention_bwd.argtypes = [ctypes.c_char_p]
     lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.flash_attention_bwd_smem.restype = ctypes.c_longlong
     return lib
+
+
+def built_smem_bytes_bwd(hd: int, dtype: torch.dtype) -> int:
+    """The built backward kernel's own count of what ``smem_bytes_bwd``
+    mirrors (builds the kernel if needed; -1 for a head dim it lacks)."""
+    return _bwd_library().flash_attention_bwd_smem(
+        hd, dtype is torch.bfloat16)
 
 
 def build() -> None:
@@ -207,10 +231,10 @@ def check_bwd_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention_bwd: {name} must be "
                              "contiguous and start on 16 bytes")
     hd = q.shape[3]
-    if smem_bytes_bwd(hd) > MAX_SMEM_BYTES:
+    if smem_bytes_bwd(hd, q.dtype) > MAX_SMEM_BYTES:
         raise ValueError(f"flash_attention_bwd: head_dim {hd} needs "
-                         f"{smem_bytes_bwd(hd)} bytes of shared memory; a "
-                         f"block has {MAX_SMEM_BYTES}")
+                         f"{smem_bytes_bwd(hd, q.dtype)} bytes of shared "
+                         f"memory; a block has {MAX_SMEM_BYTES}")
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -220,7 +244,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inputs' dtype from q (B,S,H,hd), k, v (B,S,K,hd), the forward's output
     o and its ``lse`` (B,H,S) fp32, and the output's gradient ``do``
     (B,S,H,hd). The same checks as the forward, and T == S. Three launches
-    (Δ = rowsum(dO ∘ O), then dk and dv, then dq) on the current stream."""
+    (Δ = rowsum(dO ∘ O), then dk and dv, then dq) on the current stream.
+    fp32 runs on the CUDA cores; bf16 on the tensor cores, with P and dS
+    rounded to bf16 before the products that take them (every sum fp32)."""
     index, (qp, kp, vp) = _check(q, k, v)
     check_bwd_shapes(q, k, v, o, do)
     _check_lse(lse, q)

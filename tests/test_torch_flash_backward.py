@@ -3,9 +3,11 @@
 computes) against ``torch.autograd`` through ``ref.flash_attention_ref`` and
 against ``jax.vjp`` of the reference's ``repro.kernels.ref.
 flash_attention_ref``; ``torch.autograd.gradcheck`` of ``ops.FlashAttention``
-on fp64 CPU inputs; the forward's log-sum-exp; and the backward wrapper's
-checks that need no GPU. The kernel itself is held against the plain
-version on the GPU in tests/test_torch_cuda_kernels.py."""
+on fp64 CPU inputs; the forward's log-sum-exp; the backward wrapper's checks
+that need no GPU; and the bf16 kernel's rounding points (P and dS rounded to
+bf16 before the products that take them) emulated in torch against the fp32
+gradient. The kernel itself is held against the plain version on the GPU in
+tests/test_torch_cuda_kernels.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -132,8 +134,85 @@ def test_backward_wrapper_checks_without_a_gpu():
         tfa.check_bwd_shapes(q, k, v, o, do.transpose(1, 2))
     with pytest.raises(ValueError):                 # the CUDA wrapper itself
         tfa.flash_attention_bwd(q, k, v, o, torch.zeros(1, 4, 64), do)
-    # every instantiation fits a block: 4 fp32 tiles of 32 padded rows, the
-    # P and dS tiles, lse and delta
-    assert tfa.smem_bytes_bwd(128) == 76_288
-    assert max(map(tfa.smem_bytes_bwd, tfa.HEAD_DIMS)) == 141_824 \
+    # every instantiation fits a block: the fp32 dq block at hd 128 (q, dO,
+    # a ring of two 64-key k/v tiles of padded rows, dSᵀ, lse and Δ) is the
+    # largest of all
+    assert tfa.smem_bytes_bwd(128) == 220_672
+    assert max(map(tfa.smem_bytes_bwd, tfa.HEAD_DIMS)) == 220_672 \
         <= tfa.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+def test_backward_shared_memory_fits_a_block(hd, dtype):
+    """Every head dim in both dtypes fits one block's 227 KB, and the
+    wrapper's checks pass for it; bf16 tiles are staged as bf16, so they
+    take less than fp32's at the same head dim."""
+    assert hd in tfa.HEAD_DIMS
+    need = tfa.smem_bytes_bwd(hd, dtype)
+    assert 0 < need <= tfa.MAX_SMEM_BYTES
+    if dtype == torch.bfloat16:
+        assert need < tfa.smem_bytes_bwd(hd, torch.float32)
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in
+                   _inputs((1, 8, 2, hd, 1, 8, True, 0)))
+    tfa.check_bwd_shapes(q, k, v, torch.zeros_like(q), do)
+
+
+def _bf16_kernel_arithmetic(q, k, v, o, lse, do, causal, window):
+    """The bf16 backward kernel's arithmetic written out in torch: the bf16
+    inputs' products summed in fp32 (S, dP and Δ exact as the tensor cores'
+    fp32 accumulation of bf16 products), P = exp(S·scale − lse) and
+    dS = P ∘ (dP − Δ) in fp32, then P and dS rounded to bf16 before
+    dV = Pᵀ·dO, dK = dSᵀ·q·scale and dQ = dS·k·scale, the outputs rounded to
+    bf16."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = hd ** -0.5
+    qg, og, dog = (t.float().reshape(B, S, K, G, hd) for t in (q, o, do))
+    delta = (dog * og).sum(-1).permute(0, 2, 3, 1)
+    p = torch.exp(ref._masked_scores(q, k, causal, window)
+                  - lse.reshape(B, K, G, S)[..., None])
+    dp = torch.einsum("bskgh,btkh->bkgst", dog, v.float())
+    ds = p * (dp - delta[..., None])
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dv = torch.einsum("bkgst,bskgh->btkh", p16, dog)
+    dq = torch.einsum("bkgst,btkh->bskgh", ds16, k.float()) * scale
+    dk = torch.einsum("bkgst,bskgh->btkh", ds16, qg) * scale
+    return (dq.reshape(B, S, H, hd).bfloat16(), dk.bfloat16(),
+            dv.bfloat16())
+
+
+# small versions of each family of chip_smoke.py's BWD_SHAPES:
+# B, S, H, hd, K, causal, window
+BF16_FAMILIES = [
+    (2, 64, 4, 128, 4, True, 0),       # olmo-1b: MHA causal
+    (1, 64, 16, 128, 2, True, 0),      # yi-9b: 8-way GQA
+    (1, 72, 7, 64, 1, True, 0),        # internvl2-1b: 7-way GQA, ragged
+    (1, 96, 4, 256, 1, True, 24),      # hd 256 MQA with a window
+    (1, 100, 4, 80, 4, False, 0),      # hubert-xlarge: encoder, hd 80
+    (2, 37, 4, 32, 2, True, 0),        # ragged causal at hd 32
+]
+
+
+@pytest.mark.parametrize("shape", BF16_FAMILIES)
+def test_bf16_rounding_points_stay_within_tolerance(shape):
+    """Rounding P and dS to bf16 before dV, dK and dQ (as the bf16 kernel
+    does on the tensor cores) keeps the gradient within the bf16 tolerance
+    (2e-2 absolute plus relative) of the fp32 gradient of the same bf16
+    inputs, at a small version of each shape family the card checks."""
+    B, S, H, hd, K, causal, window = shape
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in
+                   _inputs((B, S, H, hd, K, S, causal, window), seed=3))
+    o, lse = ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                         window=window)
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       o.float(), lse, do.float(),
+                                       causal=causal, window=window)
+    got = _bf16_kernel_arithmetic(q, k, v, o, lse, do, causal, window)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        err = (g.float() - w).abs()
+        assert bool((err <= 2e-2 + 2e-2 * w.abs()).all()), \
+            f"d{name}: max |err| {err.max().item():.3e}"
+        assert err.max().item() > 0          # the rounding is there
