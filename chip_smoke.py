@@ -143,7 +143,20 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    kernel group); the train state through the port's checkpoint and back,
    equal. (c) ``ops.ssd_scan``, ``ops.rglru_scan`` and
    ``ops.rglru_gated_scan`` refuse CUDA inputs that require grad.
-10. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
+10. The paper's resource manager (``repro_torch.core``, host only), with
+   ``jax`` and ``repro`` absent from ``sys.modules``: Fig. 3's nine cells
+   through ``ResourceManager(fig3_catalog())`` (cost, non-GPU and GPU
+   counts, optimal, the Fail of ST1 in scenario 3), the 61/36/3% savings
+   and the >50% headline; Fig. 6's NL, ARMVAC, ARMVAC+ and GCL at
+   ``tests/test_fig6.py``'s rates (GCL optimal and cheapest, its savings);
+   Table I's catalog field for field and Fig. 3's scenarios on it; the
+   48-hour rush-hour trace of ``AdaptiveManager`` in ST3 and REPAIR mode
+   (each hour's action, total cost, migrations); a REPAIR replan of a
+   drifted 400-stream fleet and a ``plan_mixed`` of 400 replicated streams.
+   Every plan must pass ``validate``. One ``{"manager": ...}`` line with
+   the plans' summaries and each step's host seconds, after the card's
+   name and power limit.
+11. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
    its main paths, served and trained; ``launches_by_path`` also holds the
    phase-5 paths), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -300,6 +313,44 @@ GRAD_REL_TOL = 1e-3
 VGG_HW = 224                    # the canonical VGG16/ZF frame size
 YI_WINDOW = 128                 # window_override of yi-9b's long-prompt check
 YI_WINDOW_PROMPT = 300
+# phase 10, the paper's resource manager. Fig. 3's nine cells (the table of
+# tests/test_fig3.py): (scenario, strategy) -> ($/hour, non-GPU instances,
+# GPU instances); None is the paper's Fail
+FIG3_EXPECTED = {
+    (1, "ST1"): (1.676, 4, 0), (1, "ST2"): (0.650, 0, 1),
+    (1, "ST3"): (0.650, 0, 1), (2, "ST1"): (0.419, 1, 0),
+    (2, "ST2"): (0.650, 0, 1), (2, "ST3"): (0.419, 1, 0),
+    (3, "ST1"): None, (3, "ST2"): (7.150, 0, 11), (3, "ST3"): (6.919, 1, 10),
+}
+# ST3's saving in each scenario against its baseline, whole percent
+FIG3_SAVINGS = {1: ("ST1", 61), 2: ("ST2", 36), 3: ("ST2", 3)}
+FIG6_FPS = (0.2, 1.0, 2.0, 5.0, 10.0, 20.0)      # tests/test_fig6.py's rates
+# Table I of the paper: type, capacity (cores, GiB, GPUs, GPU GiB), $/hour
+# by location, has_gpu
+TABLE1 = (
+    ("c4.2xlarge", (8.0, 15.0, 0.0, 0.0),
+     {"virginia": 0.398, "london": 0.476, "singapore": 0.462}, False),
+    ("c4.8xlarge", (36.0, 60.0, 0.0, 0.0),
+     {"virginia": 1.591, "london": 1.902, "singapore": 1.848}, False),
+    ("g3.8xlarge", (32.0, 244.0, 2.0, 16.0),
+     {"virginia": 2.280, "singapore": 3.340}, True),
+    ("D8v3", (8.0, 32.0, 0.0, 0.0),
+     {"us-east": 0.384, "west-europe": 0.480, "east-asia": 0.625}, False),
+    ("NC24r", (24.0, 224.0, 4.0, 48.0),
+     {"us-east": 3.960, "west-europe": 5.132}, True),
+)
+# Fig. 3's scenarios planned by ST3 over Table I's catalog
+TABLE1_ST3 = {1: (1.536, 4, 0), 2: (0.384, 1, 0), 3: (6.24, 0, 2)}
+# the 48-hour rush-hour trace of AdaptiveManager over four ZF cameras (the
+# demand of tests/test_adaptive.py): each hour's action (r replan, k keep,
+# f forced replan), the trace's total $ and its migrations, by strategy
+RUSH_HOUR = {
+    "ST3": ("rkkkkkkffkrrkkkkffkrrkkkkkkkkkkffkrrkkkkffkrrkkk",
+            44.608000000000004, 56),
+    "REPAIR": ("rkkkkkkffkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkk", 108.233, 6),
+}
+MANAGER_FLEET = 400             # streams of the REPAIR replan and plan_mixed
+MANAGER_SEED = 0
 
 
 def fail(msg: str) -> None:
@@ -1928,6 +1979,234 @@ def check_refusals(torch, wrappers: dict) -> None:
     print("ssd_scan, rglru_scan and rglru_gated_scan refuse grad on the card")
 
 
+def rush_hour_fps(t: int) -> float:
+    """Demand profile: quiet nights (0.2 fps), rush-hour peaks (6 fps)."""
+    if t % 24 in (8, 9, 17, 18):
+        return 6.0
+    if t % 24 in (7, 10, 16, 19):
+        return 2.0
+    return 0.2
+
+
+def _manager_fleet(core, geo, rng, n: int, replicas: int = 1,
+                   tag: str = "") -> list:
+    """``n`` seeded camera streams (a quarter VGG16, the rest ZF) over the
+    Fig. 6 cameras; with ``replicas`` > 1, groups of ``cam#k`` replicas."""
+    cams = tuple(sorted(geo.CAMERAS))
+    out = []
+    for i in range(n // replicas):
+        cam = cams[int(rng.integers(0, len(cams)))]
+        prog = "VGG16" if rng.random() < 0.25 else "ZF"
+        hi = 1.5 if prog == "VGG16" else 6.0
+        fps = round(float(rng.uniform(0.1, hi)) / replicas, 3)
+        for k in range(replicas):
+            sid = f"{prog.lower()}-{tag}{i}" + (f"#{k}" if replicas > 1 else "")
+            out.append(core.Stream(sid, core.PROGRAMS[prog], fps, camera=cam))
+    return out
+
+
+def check_manager() -> dict:
+    """Phase 10: the paper's resource manager on this machine, from
+    ``repro_torch.core`` alone (host only). Returns the report of the
+    ``{"manager": ...}`` line; any mismatch is fatal."""
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "repro")
+                    and sys.modules[m] is not None)
+    if leaked:
+        fail(f"the manager phase found reference modules loaded: {leaked}")
+    import dataclasses
+
+    from repro_torch import core
+    from repro_torch.core import geo
+
+    host_s: dict = {}
+    report: dict = {"host_s": host_s}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        host_s[name] = time.perf_counter() - t0
+        return out
+
+    def valid(plan, what):
+        try:
+            core.validate(plan.problem, plan.solution)
+        except AssertionError as e:
+            fail(f"{what}: the plan fails validate: {e}")
+
+    def cell(summary):
+        return (round(summary["hourly_cost"], 3),
+                summary["non_gpu_instances"], summary["gpu_instances"])
+
+    # Fig. 3: nine cells, the savings and the headline
+    mgr = core.ResourceManager(core.fig3_catalog())
+
+    def fig3():
+        plans = {}
+        for (sc, strat) in FIG3_EXPECTED:
+            plans[(sc, strat)] = mgr.plan_or_fail(
+                core.make_streams(core.FIG3_SCENARIOS[sc]), strat)
+        return plans
+
+    plans = timed("fig3", fig3)
+    fig3_report = {}
+    for key, want in FIG3_EXPECTED.items():
+        plan = plans[key]
+        name = f"{key[1]} scenario {key[0]}"
+        if want is None:
+            if plan is not None:
+                fail(f"Fig. 3 {name}: planned {plan.summary()}, want Fail")
+            fig3_report[name] = "Fail"
+            continue
+        if plan is None:
+            fail(f"Fig. 3 {name}: Fail, want {want}")
+        valid(plan, f"Fig. 3 {name}")
+        s = plan.summary()
+        if cell(s) != want or not s["optimal"]:
+            fail(f"Fig. 3 {name}: {s}, want {want} and optimal")
+        fig3_report[name] = s
+    savings = {}
+    for sc, (base, pct) in FIG3_SAVINGS.items():
+        saving = 1 - (plans[(sc, "ST3")].hourly_cost
+                      / plans[(sc, base)].hourly_cost)
+        if round(100 * saving) != pct:
+            fail(f"Fig. 3 scenario {sc}: ST3 saves {100 * saving:.2f}% "
+                 f"against {base}, want {pct}%")
+        savings[f"scenario {sc} ST3 vs {base}"] = saving
+    if savings["scenario 1 ST3 vs ST1"] <= 0.50:
+        fail("Fig. 3: the >50% headline does not hold")
+    report["fig3"] = fig3_report
+    report["fig3_savings"] = savings
+
+    # Fig. 6: NL, ARMVAC (and ARMVAC+) and GCL over the twelve cameras
+    mgr6 = core.ResourceManager(core.fig6_catalog())
+    cams = [core.Stream(f"zf-{c}", core.PROGRAMS["ZF"], fps=1.0, camera=c)
+            for c in geo.CAMERAS]
+
+    def fig6():
+        return {fps: {name: mgr6.plan(cams, name, target_fps=fps)
+                      for name in ("NL", "ARMVAC", "ARMVAC+", "GCL")}
+                for fps in FIG6_FPS}
+
+    fig6_plans = timed("fig6", fig6)
+    fig6_report = {}
+    best_vs_nl = best_vs_armvac = 0.0
+    for fps, by_name in fig6_plans.items():
+        for name, plan in by_name.items():
+            valid(plan, f"Fig. 6 {name} at {fps} fps")
+        cost = {n: p.hourly_cost for n, p in by_name.items()}
+        if not by_name["GCL"].solution.optimal:
+            fail(f"Fig. 6 GCL at {fps} fps: not proven optimal")
+        if cost["GCL"] > min(cost["NL"], cost["ARMVAC"]) + 1e-9:
+            fail(f"Fig. 6 at {fps} fps: GCL is not the cheapest: {cost}")
+        best_vs_nl = max(best_vs_nl, 1 - cost["GCL"] / cost["NL"])
+        if 1.0 <= fps <= 20.0:
+            best_vs_armvac = max(best_vs_armvac,
+                                 1 - cost["GCL"] / cost["ARMVAC"])
+        fig6_report[str(fps)] = cost
+    if best_vs_nl < 0.50 or best_vs_armvac < 0.31:
+        fail(f"Fig. 6: GCL saves {best_vs_nl:.3f} vs NL (want >= 0.50) "
+             f"and {best_vs_armvac:.3f} vs ARMVAC (want >= 0.31)")
+    report["fig6"] = fig6_report
+    report["fig6_gcl_savings"] = {"vs NL": best_vs_nl,
+                                  "vs ARMVAC 1-20 fps": best_vs_armvac}
+
+    # Table I: the catalog field for field, and Fig. 3's scenarios on it
+    table1 = core.table1_catalog()
+    got = tuple((t.name, t.capacity, dict(t.prices), t.has_gpu)
+                for t in table1.types)
+    if got != TABLE1:
+        fail(f"Table I catalog: {got}")
+    mgr1 = core.ResourceManager(table1)
+    t1_plans = timed("table1", lambda: {
+        sc: mgr1.plan(core.make_streams(core.FIG3_SCENARIOS[sc]), "ST3")
+        for sc in TABLE1_ST3})
+    for sc, plan in t1_plans.items():
+        valid(plan, f"Table I scenario {sc}")
+        if cell(plan.summary()) != TABLE1_ST3[sc]:
+            fail(f"Table I scenario {sc}: {plan.summary()}, "
+                 f"want {TABLE1_ST3[sc]}")
+    report["table1"] = {f"ST3 scenario {sc}": p.summary()
+                        for sc, p in t1_plans.items()}
+
+    # the adaptive manager over the 48-hour rush-hour trace
+    letter = {"replan": "r", "keep": "k", "forced-replan": "f"}
+    adaptive = {}
+    for strat, (kinds, total, migrations) in RUSH_HOUR.items():
+        am = core.AdaptiveManager(core.ResourceManager(core.fig3_catalog()),
+                                  strategy=strat)
+
+        def trace():
+            applied = 0.0
+            for t in range(48):
+                streams = [core.Stream(f"cam{i}", core.PROGRAMS["ZF"],
+                                       fps=rush_hour_fps(t))
+                           for i in range(4)]
+                applied += am.step(t, streams).hourly_cost
+            return applied
+
+        applied = timed(f"rush_hour {strat}", trace)
+        got = "".join(letter[e.action] for e in am.events)
+        valid(am.current, f"rush hour {strat}")
+        if got != kinds or am.total_migrations() != migrations:
+            fail(f"rush hour {strat}: actions {got}, migrations "
+                 f"{am.total_migrations()}; want {kinds}, {migrations}")
+        if am.total_cost() != total or \
+                abs(am.total_cost() - applied) > 1e-9 * total:
+            fail(f"rush hour {strat}: total {am.total_cost()!r} (the "
+                 f"applied plans sum to {applied!r}), want {total!r}")
+        adaptive[strat] = {"actions": got, "total_cost": am.total_cost(),
+                           "migrations": am.total_migrations(),
+                           "defrags": am.defrags()}
+    report["rush_hour"] = adaptive
+
+    # a REPAIR replan of a drifted fleet, and a mixed on-demand/spot plan
+    import numpy as np
+    rng = np.random.default_rng(MANAGER_SEED)
+    fleet = _manager_fleet(core, geo, rng, MANAGER_FLEET)
+    first = timed("repair fresh", lambda: mgr6.plan(fleet, "REPAIR"))
+    drifted = [dataclasses.replace(s, fps=round(min(s.fps * 1.5, 6.0), 3))
+               if rng.random() < 0.3 else s
+               for s in fleet if rng.random() > 0.1]
+    drifted += _manager_fleet(core, geo, rng, 20, tag="new")
+    repaired = timed("repair replan", lambda: mgr6.plan(
+        drifted, "REPAIR", previous=first))
+    fresh = mgr6.plan(drifted, "FFD")
+    for what, plan in (("REPAIR fresh", first), ("REPAIR replan", repaired),
+                       ("FFD", fresh)):
+        valid(plan, what)
+    moved = core.count_plan_migrations(first, repaired)
+    if moved > core.count_plan_migrations(first, fresh):
+        fail(f"REPAIR moved {moved} streams, more than a fresh FFD would")
+    report["repair"] = {"streams": len(drifted), "migrations": moved,
+                        "ffd_migrations": core.count_plan_migrations(
+                            first, fresh),
+                        "hourly_cost": repaired.hourly_cost,
+                        "ffd_hourly_cost": fresh.hourly_cost,
+                        "instances": sum(repaired.instance_counts().values())}
+
+    replicated = _manager_fleet(core, geo, rng, MANAGER_FLEET, replicas=2)
+    mult = {r: round(float(rng.uniform(0.2, 0.9)), 4)
+            for r in mgr6.catalog.locations}
+    mixed = timed("plan_mixed", lambda: mgr6.plan_mixed(replicated, mult))
+    valid(mixed.plan, "plan_mixed")
+    if core.spot_affinity_violations(mixed.plan):
+        fail("plan_mixed: replicas share a spot market")
+    if mixed.plan.hourly_cost > mixed.ondemand_cost + 1e-9:
+        fail("plan_mixed costs more than the on-demand-only plan")
+    spot = sum(1 for b in mixed.plan.solution.bins
+               if mixed.plan.problem.choices[b.choice].market == "spot")
+    report["mixed"] = {"streams": len(replicated),
+                       "hourly_cost": mixed.plan.hourly_cost,
+                       "ondemand_cost": mixed.ondemand_cost,
+                       "spot_instances": spot,
+                       "instances": len(mixed.plan.solution.bins)}
+    print(f"the paper's resource manager: Fig. 3, Fig. 6, Table I, the "
+          f"rush-hour trace, REPAIR and plan_mixed agree "
+          f"({sum(host_s.values()):.3f} s on the host)")
+    return report
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2050,7 +2329,12 @@ def main() -> None:
         records[name]["launches"] += n
         records[name]["launches_by_path"][f"{TRAIN_ARCH} train"] = n
     check_refusals(torch, wrappers)
+
+    # 10) the paper's resource manager, on the host of this machine
+    manager_report = check_manager()
     print(json.dumps({"vgg": vgg_report}))
+    print(card, flush=True)
+    print(json.dumps({"manager": manager_report}))
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

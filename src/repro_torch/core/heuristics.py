@@ -1,14 +1,20 @@
-"""First-fit-decreasing, the incumbent of the exact solver: the port's copy
-of ``repro.core.heuristics.first_fit_decreasing`` and the scalar packing
-loop behind it."""
+"""Greedy heuristics: first-fit-decreasing and cheapest-instance-first (ARMVAC core).
+
+These provide (a) the incumbent for the exact branch-and-bound solver and
+(b) the paper's greedy baselines.
+"""
 from __future__ import annotations
 
-from repro_torch.core.packing import Bin, Infeasible, Item, Problem, Solution, fits
+from typing import Optional
+
+from repro_torch.core.packing import (
+    Bin, Choice, Infeasible, Item, Problem, Solution, fits,
+)
 
 
 def _norm_size(problem: Problem, item: Item) -> float:
-    """Item size for the decreasing order: max normalized dim over the
-    item's compatible choices (standard l_inf FFD for VBP)."""
+    """Item size for the decreasing order: max normalized dim over the item's
+    *cheapest-per-unit* compatible choice (standard l_inf FFD for VBP)."""
     best = 0.0
     any_ok = False
     for c in item.compatible():
@@ -24,8 +30,8 @@ def _norm_size(problem: Problem, item: Item) -> float:
 
 
 def _cost_efficiency(problem: Problem, choice_idx: int, remaining_items: list[int]) -> float:
-    """Price per unit of 'how many of the remaining items this choice could
-    hold' — a greedy desirability score (lower is better)."""
+    """Price per unit of 'how many of the remaining items this choice could hold'
+    — a greedy desirability score (lower is better)."""
     ch = problem.choices[choice_idx]
     count = 0
     used = [0.0] * problem.ndim
@@ -41,11 +47,31 @@ def _cost_efficiency(problem: Problem, choice_idx: int, remaining_items: list[in
     return ch.price / count
 
 
+def ffd_pack_into(problem: Problem, bins: list[Bin],
+                  bin_used: list[list[float]], items) -> None:
+    """First-fit the given item indices (decreasing norm-size order) into
+    ``bins``/``bin_used`` (mutated in place; new bins append), opening a new
+    bin by the lowest price-per-held-items rule when nothing fits. Shared by
+    :func:`first_fit_decreasing` (empty seed) and the repair planner's delta
+    pass (seeded with the kept bins, so residual capacity fills first).
+
+    Problems built by the packed (columnwise) ``build_problem`` path carry
+    class-structured arrays and dispatch to the vectorized packer in
+    :mod:`repro_torch.core.packed`, which produces bit-identical bins (see
+    tests/test_packed_parity.py); hand-built problems take the scalar loop
+    below.
+    """
+    from repro_torch.core import packed as _packed
+    pp = _packed.get_packed(problem)
+    if pp is not None:
+        _packed.ffd_pack_packed(problem, pp, bins, bin_used, items)
+        return
+    _ffd_pack_into_scalar(problem, bins, bin_used, items)
+
+
 def _ffd_pack_into_scalar(problem: Problem, bins: list[Bin],
                           bin_used: list[list[float]], items) -> None:
-    """First-fit the given items (decreasing norm-size order) into
-    ``bins``/``bin_used`` (mutated in place; new bins append), opening a
-    new bin by the lowest price-per-held-items rule when nothing fits."""
+    """The original per-item FFD loop — the parity/speedup baseline."""
     order = sorted(items, key=lambda i: _norm_size(problem, problem.items[i]),
                    reverse=True)
     for pos, i in enumerate(order):
@@ -79,6 +105,84 @@ def first_fit_decreasing(problem: Problem) -> Solution:
     price-per-held-items is lowest among compatible choices."""
     bins: list[Bin] = []
     bin_used: list[list[float]] = []
-    _ffd_pack_into_scalar(problem, bins, bin_used, range(len(problem.items)))
+    ffd_pack_into(problem, bins, bin_used, range(len(problem.items)))
     cost = sum(problem.choices[b.choice].price for b in bins)
     return Solution(bins=bins, cost=cost, optimal=False, note="ffd")
+
+
+def lowest_price_first(problem: Problem) -> Solution:
+    """The paper's literal ARMVAC packing rule [6,8]: "selects the lowest-cost
+    instances from the remaining pool, and sends as many data streams to this
+    instance" — i.e. pick the instance with the lowest *hourly price* that can
+    still hold at least one remaining stream, fill it, repeat. This is exactly
+    why ARMVAC underperforms in the 1–20 fps mid-band: it keeps renting cheap
+    small instances where one bigger/GPU instance is cheaper per stream.
+    """
+    remaining = sorted(range(len(problem.items)),
+                       key=lambda i: _norm_size(problem, problem.items[i]),
+                       reverse=True)
+    bins: list[Bin] = []
+    cost = 0.0
+    by_price = sorted(range(len(problem.choices)),
+                      key=lambda c: (problem.choices[c].price, problem.choices[c].key))
+    while remaining:
+        chosen = None
+        for c in by_price:
+            ch = problem.choices[c]
+            if any(problem.items[i].requirements[c] is not None and
+                   fits(problem.items[i].requirements[c], [0.0] * problem.ndim,
+                        ch.capacity)
+                   for i in remaining):
+                chosen = c
+                break
+        if chosen is None:
+            raise Infeasible(f"no choice can hold any of {len(remaining)} remaining streams")
+        ch = problem.choices[chosen]
+        b = Bin(choice=chosen)
+        used = [0.0] * problem.ndim
+        still: list[int] = []
+        for i in remaining:
+            req = problem.items[i].requirements[chosen]
+            if req is not None and fits(req, used, ch.capacity):
+                b.items.append(i)
+                for k in range(problem.ndim):
+                    used[k] += req[k]
+            else:
+                still.append(i)
+        bins.append(b)
+        cost += ch.price
+        remaining = still
+    return Solution(bins=bins, cost=cost, optimal=False, note="lowest-price-first")
+
+
+def cheapest_instance_first(problem: Problem) -> Solution:
+    """ARMVAC's packing core [6,8]: repeatedly pick the most cost-efficient
+    choice for the remaining streams, open one instance of it, and push as many
+    remaining streams into it as fit (in decreasing size order)."""
+    remaining = sorted(range(len(problem.items)),
+                       key=lambda i: _norm_size(problem, problem.items[i]),
+                       reverse=True)
+    bins: list[Bin] = []
+    cost = 0.0
+    while remaining:
+        best_c = min(range(len(problem.choices)),
+                     key=lambda c: (_cost_efficiency(problem, c, remaining),
+                                    problem.choices[c].price))
+        if _cost_efficiency(problem, best_c, remaining) == float("inf"):
+            raise Infeasible(f"no choice can hold any of {len(remaining)} remaining streams")
+        ch = problem.choices[best_c]
+        b = Bin(choice=best_c)
+        used = [0.0] * problem.ndim
+        still: list[int] = []
+        for i in remaining:
+            req = problem.items[i].requirements[best_c]
+            if req is not None and fits(req, used, ch.capacity):
+                b.items.append(i)
+                for k in range(problem.ndim):
+                    used[k] += req[k]
+            else:
+                still.append(i)
+        bins.append(b)
+        cost += ch.price
+        remaining = still
+    return Solution(bins=bins, cost=cost, optimal=False, note="cheapest-first")

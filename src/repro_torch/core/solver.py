@@ -1,6 +1,6 @@
-"""Exact branch-and-bound solver for multi-dimensional multiple-choice VBP:
-the port's copy of ``repro.core.solver.solve``.
+"""Exact branch-and-bound solver for multi-dimensional multiple-choice VBP.
 
+Replaces the Gurobi 5.0 branch-and-cut of the paper (offline environment).
 Exact for the paper-scale inputs (tens of streams, dozens of choices); falls
 back to the FFD incumbent with ``optimal=False`` when the node budget is hit.
 
@@ -202,3 +202,54 @@ def solve(problem: Problem,
                    optimal=stats.optimal,
                    note="bnb" if stats.optimal else "bnb(budget hit; incumbent)")
     return sol, stats
+
+
+def brute_force(problem: Problem, max_items: int = 7) -> Solution:
+    """Exhaustive reference for property tests (tiny inputs only)."""
+    n = len(problem.items)
+    if n > max_items:
+        raise ValueError("brute_force is for tiny instances")
+    best: Optional[Solution] = None
+
+    bin_choice: list[int] = []
+    bin_used: list[list[float]] = []
+    bin_items: list[list[int]] = []
+
+    def rec(i: int, cost: float) -> None:
+        nonlocal best
+        if best is not None and cost >= best.cost - 1e-9:
+            return
+        if i == n:
+            bins = [Bin(bin_choice[b], list(bin_items[b])) for b in range(len(bin_choice))]
+            best = Solution(bins=bins, cost=cost, optimal=True, note="brute")
+            return
+        item = problem.items[i]
+        for b in range(len(bin_choice)):
+            req = item.requirements[bin_choice[b]]
+            if req is None:
+                continue
+            if fits(req, bin_used[b], problem.choices[bin_choice[b]].capacity):
+                for d in range(problem.ndim):
+                    bin_used[b][d] += req[d]
+                bin_items[b].append(i)
+                rec(i + 1, cost)
+                bin_items[b].pop()
+                for d in range(problem.ndim):
+                    bin_used[b][d] -= req[d]
+        for c in item.compatible():
+            req = item.requirements[c]
+            ch = problem.choices[c]
+            if not fits(req, [0.0] * problem.ndim, ch.capacity):
+                continue
+            bin_choice.append(c)
+            bin_used.append(list(req))
+            bin_items.append([i])
+            rec(i + 1, cost + ch.price)
+            bin_choice.pop()
+            bin_used.pop()
+            bin_items.pop()
+
+    rec(0, 0.0)
+    if best is None:
+        raise Infeasible("no feasible assignment exists")
+    return best
