@@ -156,7 +156,24 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    Every plan must pass ``validate``. One ``{"manager": ...}`` line with
    the plans' summaries and each step's host seconds, after the card's
    name and power limit.
-11. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
+11. The fleet simulator (``repro_torch.sim``, host only), with ``jax`` and
+   ``repro`` absent from ``sys.modules``: ``spot_heavy``, ``rush_hour`` and
+   ``roi_day`` at 108 streams and ``mega_city`` at 1,000, each a 24-hour
+   day of seed 0 under ``ReactivePolicy`` and ``RepairPolicy(
+   migration_budget=36, defrag_ratio=2.0)``, their ledger totals against
+   ``tests/test_golden_ledgers.py``'s goldens (exact on the rounded
+   totals; the one day that table lacks, ``mega_city`` under REPAIR,
+   against totals derived from the reference); ``mega_city`` at its
+   published 10,000 streams on the columnar path against totals derived
+   from the reference; the host ms of each ``policy.decide`` over the
+   ``rush_hour`` REPAIR and ``spot_heavy`` reactive days (p50, max); a
+   ``rush_hour`` day capped by ``ServiceCalibration.from_engine`` over
+   phase 6's olmo-1b engine (every tick within the sum of its streams'
+   frame-rate caps, no more frames than the uncalibrated day) and the
+   calibration's rates planned on the H100 catalog. A card line, then one
+   ``{"sim": ...}`` line with each day's totals, the comparisons and the
+   host seconds.
+12. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
    its main paths, served and trained; ``launches_by_path`` also holds the
    phase-5 paths), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -351,6 +368,113 @@ RUSH_HOUR = {
 }
 MANAGER_FLEET = 400             # streams of the REPAIR replan and plan_mixed
 MANAGER_SEED = 0
+# phase 11, the fleet simulator, in tests/test_golden_ledgers.py's
+# configuration: 108 streams (mega_city 1,000), 24 h, seed 0, REPAIR with a
+# 36-move budget and a 2.0 defrag ratio
+SIM_STREAMS, SIM_HOURS, SIM_SEED = 108, 24.0, 0
+SIM_N_OVERRIDE = {"mega_city": 1000}
+SIM_DAYS = ("spot_heavy", "rush_hour", "roi_day", "mega_city")
+SIM_POLICIES = ("reactive", "repair")
+# tests/test_golden_ledgers.py's GOLDEN and GOLDEN_HOURS, copied (a tier-1
+# test holds the copies equal to that file's tables)
+SIM_GOLDEN = {
+    ("spot_heavy", "reactive"): {
+        "ticks": 24, "total_cost": 224.922253,
+        "frames_demanded": 11349752.4, "frames_analyzed": 10327841.223973,
+        "frames_dropped": 1021911.176027, "slo_attainment": 0.909962,
+        "migrations": 1588, "preemptions": 67, "defrags": 0},
+    ("spot_heavy", "repair"): {
+        "ticks": 24, "total_cost": 216.247657,
+        "frames_demanded": 11349752.4, "frames_analyzed": 10388353.893343,
+        "frames_dropped": 961398.506657, "slo_attainment": 0.915293,
+        "migrations": 584, "preemptions": 31, "defrags": 0},
+    ("rush_hour", "reactive"): {
+        "ticks": 24, "total_cost": 440.07255,
+        "frames_demanded": 11349752.4, "frames_analyzed": 11093271.66,
+        "frames_dropped": 256480.74, "slo_attainment": 0.977402,
+        "migrations": 1411, "preemptions": 0, "defrags": 0},
+    ("rush_hour", "repair"): {
+        "ticks": 24, "total_cost": 407.8672,
+        "frames_demanded": 11349752.4, "frames_analyzed": 11187993.06,
+        "frames_dropped": 161759.34, "slo_attainment": 0.985748,
+        "migrations": 408, "preemptions": 0, "defrags": 0},
+    ("roi_day", "reactive"): {
+        "ticks": 24, "total_cost": 671.6444,
+        "frames_demanded": 21641904.0, "frames_analyzed": 21405161.7,
+        "frames_dropped": 236742.3, "slo_attainment": 0.989061,
+        "migrations": 1905, "preemptions": 0, "defrags": 0,
+        "stage_items_peak": 252, "pooled_items_peak": 0},
+    ("roi_day", "repair"): {
+        "ticks": 24, "total_cost": 728.8338,
+        "frames_demanded": 21641904.0, "frames_analyzed": 21590226.9,
+        "frames_dropped": 51677.1, "slo_attainment": 0.997612,
+        "migrations": 25, "preemptions": 0, "defrags": 0,
+        "stage_items_peak": 252, "pooled_items_peak": 0},
+    ("mega_city", "reactive"): {
+        "ticks": 24, "total_cost": 2606.7518,
+        "frames_demanded": 62381354.4, "frames_analyzed": 61384287.24,
+        "frames_dropped": 997067.16, "slo_attainment": 0.984017,
+        "migrations": 14582, "preemptions": 0, "defrags": 0,
+        "stage_items_peak": 0, "pooled_items_peak": 0},
+}
+SIM_GOLDEN_HOURS = {
+    ("spot_heavy", "repair"): {
+        "ap-south-1/g3.8xlarge/spot": 13.811112,
+        "us-east-1/c4.2xlarge/ondemand": 1.05,
+        "us-east-1/g2.2xlarge/ondemand": 22.35,
+        "us-east-1/g2.2xlarge/spot": 87.938125,
+        "us-east-1/g3.8xlarge/ondemand": 20.05,
+        "us-east-1/g3.8xlarge/spot": 96.885748},
+    ("rush_hour", "repair"): {
+        "ap-south-1/g3.8xlarge/ondemand": 14.05,
+        "us-east-1/c4.2xlarge/ondemand": 1.05,
+        "us-east-1/g2.2xlarge/ondemand": 119.7,
+        "us-east-1/g3.8xlarge/ondemand": 126.55},
+    ("roi_day", "repair"): {
+        "us-east-1/c4.2xlarge/ondemand": 75.1,
+        "us-east-1/c4.8xlarge/ondemand": 24.0,
+        "us-east-1/g2.2xlarge/ondemand": 764.0,
+        "us-east-1/g3.8xlarge/ondemand": 72.0},
+}
+# the days the golden table lacks, (scenario, policy, streams): their totals
+# (all but instance_hours) from the reference on the columnar path; the
+# 1,000-stream row is rerun in tests/test_torch_golden_ledgers.py. Regenerate:
+#   PYTHONPATH=src python - <<'EOF'
+#   from repro.core.manager import ResourceManager
+#   from repro.sim import FleetSimulator, ReactivePolicy, RepairPolicy, SCENARIOS
+#   for label, n in (("repair", 1000), ("reactive", 10000)):
+#       sc = SCENARIOS["mega_city"](n_streams=n, duration_h=24.0, seed=0)
+#       cat = sc.catalog()
+#       pol = (ReactivePolicy(ResourceManager(cat)) if label == "reactive"
+#              else RepairPolicy(ResourceManager(cat), migration_budget=36,
+#                                defrag_ratio=2.0))
+#       tot = FleetSimulator(sc.demand, pol, cat, sc.config,
+#                            columnar=True).run().totals()
+#       tot.pop("instance_hours")
+#       print(label, n, tot)
+#   EOF
+SIM_DERIVED = {
+    ("mega_city", "repair", 1000): {
+        "ticks": 24, "total_cost": 3059.7751, "cost_ondemand": 3059.7751,
+        "cost_spot": 0.0, "frames_demanded": 62381354.4,
+        "frames_analyzed": 61782912.9, "frames_dropped": 598441.5,
+        "slo_attainment": 0.990407, "migrations": 2509, "preemptions": 0,
+        "outbids": 0, "defrags": 1, "recalibrations": 0,
+        "calib_max_rel_error": 0.0, "stage_items_peak": 0,
+        "pooled_items_peak": 0, "preboots": 0, "forecast_max_rel_error": 0.0},
+    ("mega_city", "reactive", 10000): {
+        "ticks": 24, "total_cost": 25922.35905, "cost_ondemand": 25922.35905,
+        "cost_spot": 0.0, "frames_demanded": 623414354.400003,
+        "frames_analyzed": 613255705.560004, "frames_dropped": 10158648.839999,
+        "slo_attainment": 0.983705, "migrations": 146788, "preemptions": 0,
+        "outbids": 0, "defrags": 0, "recalibrations": 0,
+        "calib_max_rel_error": 0.0, "stage_items_peak": 0,
+        "pooled_items_peak": 0, "preboots": 0, "forecast_max_rel_error": 0.0},
+}
+SIM_MEGA_CITY = 10_000          # mega_city's published size (its default)
+# the days whose policy.decide is timed call by call
+SIM_TIMED = (("rush_hour", "repair"), ("spot_heavy", "reactive"))
+SIM_CALIBRATED_ARCH = "olmo-1b"  # phase 6's engine whose rates cap a day
 
 
 def fail(msg: str) -> None:
@@ -1304,18 +1428,21 @@ def _counting_engine():
     return CountingEngine
 
 
-def serve_path(torch, arch: str, wrappers: dict) -> dict:
+def serve_path(torch, arch: str, wrappers: dict) -> tuple:
     """Phase 6 for one model: serve it at full width with every launch
     count set to 0 just before and read just after, check each count
     against the prefills and decode steps the engine ran (warmup included),
     and plan the H100 fleet again from the measured rates. An fp32 model
     goes through ``serve()``; a bf16 one (``BF16_ARCHS``) through an engine
     built here on bf16 weights and ``serve``'s second half,
-    ``measure_and_plan``. Returns the counts."""
+    ``measure_and_plan``. Returns the counts and, for
+    ``SIM_CALIBRATED_ARCH``, the served engine's ``ServiceCalibration``
+    (phase 11's cap; None for the other models)."""
     from repro_torch.core.gpu_catalog import (plan_gpu_fleet,
                                               streams_from_measured)
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models.config import get_config
+    from repro_torch.sim import ServiceCalibration
 
     engine_cls = _counting_engine()
     plain_cls = serve_mod.ContinuousBatchingEngine
@@ -1342,6 +1469,8 @@ def serve_path(torch, arch: str, wrappers: dict) -> dict:
     finally:
         serve_mod.ContinuousBatchingEngine = plain_cls
     ran = engine_cls.built[-1].totals()
+    calibration = (ServiceCalibration.from_engine(engine_cls.built[-1])
+                   if arch == SIM_CALIBRATED_ARCH else None)
     engine_cls.built.clear()             # free the served model's weights
     print(json.dumps(report, sort_keys=True))
     print(f"serve {arch} wall time {wall:.2f} s; launches {counts}; engine "
@@ -1378,7 +1507,7 @@ def serve_path(torch, arch: str, wrappers: dict) -> dict:
         {s: (p["hourly_cost"], p["instances"]) for s, p in plans.items()}))
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return counts, calibration
 
 
 def profile_serving(torch, arch: str, wrappers: dict) -> dict:
@@ -2009,11 +2138,7 @@ def check_manager() -> dict:
     """Phase 10: the paper's resource manager on this machine, from
     ``repro_torch.core`` alone (host only). Returns the report of the
     ``{"manager": ...}`` line; any mismatch is fatal."""
-    leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "repro")
-                    and sys.modules[m] is not None)
-    if leaked:
-        fail(f"the manager phase found reference modules loaded: {leaked}")
+    _no_reference_loaded("manager")
     import dataclasses
 
     from repro_torch import core
@@ -2207,6 +2332,154 @@ def check_manager() -> dict:
     return report
 
 
+def _no_reference_loaded(phase: str) -> None:
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "repro")
+                    and sys.modules[m] is not None)
+    if leaked:
+        fail(f"the {phase} phase found reference modules loaded: {leaked}")
+
+
+def _sim_day(name: str, label: str, n: int, decide_ms=None, **kw):
+    """One 24-hour day of seed 0: (the simulator, its ledger, host s). With
+    ``decide_ms`` a list, the host ms of each ``policy.decide`` call is
+    appended to it."""
+    from repro_torch.core import ResourceManager
+    from repro_torch.sim import (SCENARIOS, FleetSimulator, ReactivePolicy,
+                                 RepairPolicy)
+    sc = SCENARIOS[name](n_streams=n, duration_h=SIM_HOURS, seed=SIM_SEED)
+    cat = sc.catalog()
+    if label == "reactive":
+        policy = ReactivePolicy(ResourceManager(cat))
+    else:
+        policy = RepairPolicy(ResourceManager(cat), defrag_ratio=2.0,
+                              migration_budget=SIM_STREAMS // 3)
+    if decide_ms is not None:
+        decide = policy.decide
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = decide(*args, **kwargs)
+            decide_ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        policy.decide = timed
+    sim = FleetSimulator(sc.demand, policy, cat, sc.config, **kw)
+    t0 = time.perf_counter()
+    ledger = sim.run()
+    return sim, ledger, time.perf_counter() - t0
+
+
+def _sim_compare(day: str, got: dict, want: dict, hours=None) -> None:
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if hours is not None and got["instance_hours"] != hours:
+        bad["instance_hours"] = (got["instance_hours"], hours)
+    if bad:
+        fail(f"{day}: totals differ (got, want): {bad}")
+
+
+def check_sim(full: bool = True) -> dict:
+    """Phase 11, host only: the golden days, the published-size day and the
+    replan latency over repeated decisions. ``full=False`` keeps the
+    108-stream days only (no ``mega_city``). Returns the ``{"sim": ...}``
+    report; any mismatch is fatal."""
+    import statistics
+    _no_reference_loaded("simulator")
+    totals, compared, host_s, decide_ms = {}, {}, {}, {}
+    for name in SIM_DAYS:
+        n = SIM_N_OVERRIDE.get(name, SIM_STREAMS)
+        if not full and n != SIM_STREAMS:
+            continue
+        for label in SIM_POLICIES:
+            day = f"{name} {label} {n}"
+            timed = [] if (name, label) in SIM_TIMED else None
+            _, ledger, host_s[day] = _sim_day(name, label, n, timed)
+            if timed is not None:
+                decide_ms[day] = timed
+            totals[day] = ledger.totals()
+            if (name, label) in SIM_GOLDEN:
+                _sim_compare(day, totals[day], SIM_GOLDEN[(name, label)],
+                             SIM_GOLDEN_HOURS.get((name, label)))
+                compared[day] = "golden, equal"
+            else:
+                _sim_compare(day, totals[day], SIM_DERIVED[(name, label, n)])
+                compared[day] = "derived from the reference, equal"
+    if full:
+        day = f"mega_city reactive {SIM_MEGA_CITY} columnar"
+        _, ledger, host_s[day] = _sim_day("mega_city", "reactive",
+                                          SIM_MEGA_CITY, columnar=True)
+        totals[day] = ledger.totals()
+        _sim_compare(day, totals[day],
+                     SIM_DERIVED[("mega_city", "reactive", SIM_MEGA_CITY)])
+        compared[day] = "derived from the reference, equal"
+        totals[day].pop("instance_hours")
+    decide = {day: {"decisions": len(ms), "p50_ms": statistics.median(ms),
+                    "max_ms": max(ms), "max_at_tick": ms.index(max(ms))}
+              for day, ms in decide_ms.items()}
+    for day, d in decide.items():
+        print(f"{day}: policy.decide {d['decisions']} times, p50 "
+              f"{d['p50_ms']:.3f} ms, max {d['max_ms']:.3f} ms (tick "
+              f"{d['max_at_tick']}) on the host")
+    print(f"the fleet simulator: {len(compared)} days equal their expected "
+          f"totals ({sum(host_s.values()):.3f} s on the host)")
+    return {"totals": totals, "compared": compared, "host_s": host_s,
+            "decide_ms": decide}
+
+
+def check_calibrated_day(calibration) -> dict:
+    """Phase 11, profile then simulate: a ``rush_hour`` day of 108 streams
+    capped by ``calibration`` (a served engine's ``ServiceCalibration``; the
+    cap forces the object loop). Every tick must analyse no more frames than
+    its streams' caps allow over the tick, and the day no more than the
+    uncalibrated day; the calibration's rates are planned on the H100
+    catalog, each plan validated. Returns the report."""
+    arch = SIM_CALIBRATED_ARCH
+    _no_reference_loaded("simulator")
+    if calibration is None:
+        fail(f"no calibration: {arch} was not served")
+    from repro_torch.core.gpu_catalog import plan_gpu_fleet
+    print(f"calibration from {arch}: tokens/s by stream "
+          f"{calibration.rates_tokens_per_s}, default_rate "
+          f"{calibration.default_rate}, tokens/frame "
+          f"{calibration.tokens_per_frame}")
+    if not calibration.rates_tokens_per_s:
+        fail(f"{arch}: the engine measured no rates")
+    sim, ledger, host = _sim_day("rush_hour", "reactive", SIM_STREAMS,
+                                 calibration=calibration)
+    _, plain, _ = _sim_day("rush_hour", "reactive", SIM_STREAMS,
+                           columnar=False)
+    dt_s = sim.config.dt_h * 3600.0
+    capped = 0
+    for rec in ledger.records:
+        cap = sum(calibration.frame_rate_cap(s.stream_id) * dt_s
+                  for s in sim.demand.streams_at(rec.t))
+        if rec.frames_analyzed > cap * (1 + 1e-12):
+            fail(f"calibrated day, tick {rec.t}: {rec.frames_analyzed} "
+                 f"frames analysed over the caps' {cap}")
+        capped += cap < rec.frames_demanded
+    if ledger.frames_analyzed > plain.frames_analyzed:
+        fail(f"calibrated day analysed {ledger.frames_analyzed} frames, "
+             f"more than the uncalibrated day's {plain.frames_analyzed}")
+    streams = calibration.packing_streams(arch)
+    plans = {s: plan_gpu_fleet(streams, strategy=s)      # each validates
+             for s in ("per-stream", "uniform-big", "packed")}
+    if plans["packed"]["hourly_cost"] > plans["per-stream"]["hourly_cost"]:
+        fail(f"{arch} calibration: packed plan costs more than per-stream")
+    report = {"arch": arch, "rates_tokens_per_s":
+              dict(calibration.rates_tokens_per_s),
+              "default_rate": calibration.default_rate,
+              "totals": ledger.totals(),
+              "uncalibrated_frames_analyzed": plain.frames_analyzed,
+              "ticks_capped": capped, "host_s": host,
+              "plans": {s: (p["hourly_cost"], p["instances"])
+                        for s, p in plans.items()}}
+    print(f"calibrated rush_hour day: {ledger.frames_analyzed} of "
+          f"{ledger.frames_demanded} frames analysed ({plain.frames_analyzed}"
+          f" uncalibrated), every tick within its caps; H100 plans "
+          f"{report['plans']}")
+    return report
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2307,8 +2580,11 @@ def main() -> None:
     for rec in records.values():
         rec["launches"], rec["launches_by_path"] = 0, {}
     records["flash_attention"]["launches_by_path"].update(model_paths)
+    calibration = None
     for arch in SERVED:
-        counts = serve_path(torch, arch, wrappers)
+        counts, calib = serve_path(torch, arch, wrappers)
+        if calib is not None:
+            calibration = calib
         for name, n in counts.items():
             records[name]["launches"] += n
             records[name]["launches_by_path"][arch] = n
@@ -2332,9 +2608,16 @@ def main() -> None:
 
     # 10) the paper's resource manager, on the host of this machine
     manager_report = check_manager()
+
+    # 11) the fleet simulator on the host, and a day capped by the rates
+    # phase 6 measured on the card
+    sim_report = check_sim()
+    sim_report["calibrated_day"] = check_calibrated_day(calibration)
     print(json.dumps({"vgg": vgg_report}))
     print(card, flush=True)
     print(json.dumps({"manager": manager_report}))
+    print(card, flush=True)
+    print(json.dumps({"sim": sim_report}))
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
