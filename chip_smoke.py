@@ -173,9 +173,37 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    calibration's rates planned on the H100 catalog. A card line, then one
    ``{"sim": ...}`` line with each day's totals, the comparisons and the
    host seconds.
-12. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
-   its main paths, served and trained; ``launches_by_path`` also holds the
-   phase-5 paths), then the last line ``{"ok": true, "device": {...}}``.
+12. The observability loop (``repro_torch.obs``), with ``jax`` and
+   ``repro`` absent from ``sys.modules``. On the host: ``drifting_scene`` at
+   72 streams under ``RecalibratingPolicy`` (stale and online arms) and
+   ``regional_drift`` at 96 under the fleet-wide and the per-group policy
+   (the arms of the JAX package's ``benchmarks/drift_recalibration.py`` and
+   ``benchmarks/obs_export.py``), 24 h, seed 0: recalibration times,
+   recalibrated groups, fired groups, ledger totals, hub points and root
+   spans against the reference's (``OBS_EXPECTED``); the per-group arm's
+   JSONL and Chrome-trace exports read back equal; the telemetry overhead
+   on a ``mega_city`` day of 10,000 streams, interleaved min-of-3, printed
+   beside the reference's 5% bar (not a gate). On the card: two
+   continuous-batching engines on one set of full-width fp32 olmo-1b
+   weights, the kernels on, one per region (us-east-1: 4 ``nyc`` cameras;
+   ap-northeast-1: 4 ``tokyo`` ones) at 2 frames/s, profiled, then 10
+   windows in which each region's cameras enqueue 16 s of frames (a frame
+   each, every half second), its engine drains and a
+   ``RegionalRecalibratingPolicy`` over REPAIR decides, with
+   an ``EngineWindowProbe`` over both engines' ``windowed_rates()``, a
+   ``hub_with_exporters`` hub and a ``Tracer``; at window 4 ap-northeast-1
+   steps to 16 cameras. Only that region may fire, within ``hold_ticks`` +
+   1 windows, its re-profile and repair scoped to its streams, one
+   adaptive event flagged ``recalibration`` (a forced replan),
+   ``camera_region_groups`` equal to the probe's groups, both exports
+   round-tripping, and the flash launches, counted from 0, 16 a prefill of
+   the two engines (warmup included). Each window's per-region
+   ``rel_error``, the ``replan.wall_ms`` p50/p99, a card line, then one
+   ``{"obs": ...}`` line.
+13. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
+   its main paths, served, trained and the observability loop's;
+   ``launches_by_path`` also holds the phase-5 paths), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout, so fp32 matrix products are full fp32.
 """
@@ -475,6 +503,78 @@ SIM_MEGA_CITY = 10_000          # mega_city's published size (its default)
 # the days whose policy.decide is timed call by call
 SIM_TIMED = (("rush_hour", "repair"), ("spot_heavy", "reactive"))
 SIM_CALIBRATED_ARCH = "olmo-1b"  # phase 6's engine whose rates cap a day
+# phase 12, the observability loop. The host part runs the two benchmarks of
+# the JAX package's obs layer on the port: drifting_scene at 72 streams with
+# drift_recalibration.py's arms (stale, online) and regional_drift at 96 with
+# obs_export.py's (fleet-wide, per-group), 24 h, seed 0, REPAIR with a
+# defrag ratio of 1.25 and a budget of N // 3 (drifting_scene) or N // 8
+OBS_HOURS, OBS_SEED = 24.0, 0
+OBS_DRIFT_STREAMS, OBS_REGIONAL_STREAMS = 72, 96
+OBS_DRIFTED_REGION = "ap-northeast-1"
+# what the reference gives for each arm (a tier-1 test holds the copies equal
+# to a fresh run of the reference): recalibration times, hub points, root
+# spans, the ledger's totals() and, per group, the recalibrated groups
+_OBS_ZEROS = {"cost_spot": 0.0, "preemptions": 0, "outbids": 0,
+              "stage_items_peak": 0, "pooled_items_peak": 0, "preboots": 0,
+              "forecast_max_rel_error": 0.0, "ticks": 24}
+OBS_EXPECTED = {
+    ("drifting_scene", "stale"): {
+        "recalibrations": (), "points": 386, "spans": 24, "totals": {
+            **_OBS_ZEROS, "total_cost": 253.5121, "cost_ondemand": 253.5121,
+            "frames_demanded": 7566501.6, "frames_analyzed": 5943352.86,
+            "frames_dropped": 1623148.74, "slo_attainment": 0.785482,
+            "migrations": 347, "defrags": 2, "recalibrations": 0,
+            "calib_max_rel_error": 0.65, "instance_hours": {
+                "ap-south-1/g3.8xlarge/ondemand": 3.05,
+                "us-east-1/c4.2xlarge/ondemand": 3.1,
+                "us-east-1/g2.2xlarge/ondemand": 82.2,
+                "us-east-1/g3.8xlarge/ondemand": 83.3}}},
+    ("drifting_scene", "online"): {
+        "recalibrations": (14.0,), "points": 395, "spans": 24, "totals": {
+            **_OBS_ZEROS, "total_cost": 219.0296, "cost_ondemand": 219.0296,
+            "frames_demanded": 7566501.6, "frames_analyzed": 5934554.28,
+            "frames_dropped": 1631947.32, "slo_attainment": 0.784319,
+            "migrations": 331, "defrags": 2, "recalibrations": 1,
+            "calib_max_rel_error": 0.65, "instance_hours": {
+                "ap-south-1/g3.8xlarge/ondemand": 3.05,
+                "us-east-1/c4.2xlarge/ondemand": 3.1,
+                "us-east-1/g2.2xlarge/ondemand": 120.35,
+                "us-east-1/g3.8xlarge/ondemand": 57.3}}},
+    ("regional_drift", "fleet-wide"): {
+        "recalibrations": (15.0,), "points": 354, "spans": 24, "totals": {
+            **_OBS_ZEROS, "total_cost": 886.695, "cost_ondemand": 886.695,
+            "frames_demanded": 40435200.0, "frames_analyzed": 35464176.0,
+            "frames_dropped": 4971024.0, "slo_attainment": 0.877062,
+            "migrations": 12, "defrags": 0, "recalibrations": 1,
+            "calib_max_rel_error": 0.266667, "instance_hours": {
+                "us-east-1/g2.2xlarge/ondemand": 522.3,
+                "us-east-1/g3.8xlarge/ondemand": 96.0,
+                "us-west-2/g3.8xlarge/ondemand": 144.0}}},
+    ("regional_drift", "per-group"): {
+        "recalibrations": (15.0,), "points": 470, "spans": 24,
+        "recal_groups": ((15.0, (OBS_DRIFTED_REGION,)),),
+        "fired_groups": (OBS_DRIFTED_REGION,), "totals": {
+            **_OBS_ZEROS, "total_cost": 880.788, "cost_ondemand": 880.788,
+            "frames_demanded": 40435200.0, "frames_analyzed": 35464176.0,
+            "frames_dropped": 4971024.0, "slo_attainment": 0.877062,
+            "migrations": 8, "defrags": 0, "recalibrations": 1,
+            "calib_max_rel_error": 0.266667, "instance_hours": {
+                "us-east-1/g2.2xlarge/ondemand": 576.0,
+                "us-east-1/g3.8xlarge/ondemand": 96.0,
+                "us-west-2/g3.8xlarge/ondemand": 126.1}}},
+}
+OBS_OVERHEAD_STREAMS = 10_000   # mega_city's published size, 24 h
+OBS_MAX_OVERHEAD = 0.05         # the reference's bar (not a gate here)
+# the card part: two regions, each one olmo-1b engine serving its cameras
+# at 2 frames/s (32-token prompts, 8 new tokens, as phase 6); at window
+# OBS_STEP_AT the drifted region's load steps from 4 to 16 cameras
+OBS_REGIONS = (("us-east-1", "nyc"), (OBS_DRIFTED_REGION, "tokyo"))
+OBS_CAMERAS, OBS_LOADED_CAMERAS, OBS_FPS = 4, 16, 2.0
+# seconds of frames a window enqueues: a healthy window's drain varies by
+# ±20% on the card's host at 2 s and by ±11% at 8 s (PERF.md §6)
+OBS_WINDOW_S = 16.0
+OBS_PROFILE_WINDOWS, OBS_WINDOWS, OBS_STEP_AT = 3, 10, 4
+OBS_PATH = "olmo-1b obs loop, two regions (phase 12)"
 
 
 def fail(msg: str) -> None:
@@ -2480,6 +2580,431 @@ def check_calibrated_day(calibration) -> dict:
     return report
 
 
+def _obs_drift_arm(online: bool):
+    """``benchmarks/drift_recalibration.py``'s arm on the port:
+    ``drifting_scene`` under ``RecalibratingPolicy`` over REPAIR, the stale
+    arm with a detector that cannot fire. Returns (policy, ledger)."""
+    import math
+    from repro_torch.core import ResourceManager
+    from repro_torch.obs import (DriftConfig, DriftDetector,
+                                 RecalibratingPolicy, TelemetryHub, Tracer)
+    from repro_torch.sim import SCENARIOS, FleetSimulator, RepairPolicy
+    n = OBS_DRIFT_STREAMS
+    sc = SCENARIOS["drifting_scene"](n_streams=n, duration_h=OBS_HOURS,
+                                     seed=OBS_SEED)
+    cat = sc.catalog()
+    inner = RepairPolicy(ResourceManager(cat), migration_budget=n // 3,
+                         defrag_ratio=1.25)
+    cfg = DriftConfig() if online else DriftConfig(rel_threshold=math.inf)
+    policy = RecalibratingPolicy(inner, sc.service,
+                                 detector=DriftDetector(cfg),
+                                 telemetry=TelemetryHub(), tracer=Tracer())
+    ledger = FleetSimulator(sc.demand, policy, cat, sc.config,
+                            service=sc.service,
+                            telemetry=policy.telemetry).run()
+    return policy, ledger
+
+
+def _obs_regional_arm(regional: bool, jsonl_path=None):
+    """``benchmarks/obs_export.py``'s arm on the port: ``regional_drift``
+    under the fleet-wide ``RecalibratingPolicy`` over a windowed probe, or
+    under ``RegionalRecalibratingPolicy``. The hub writes JSONL to
+    ``jsonl_path`` when one is given. Returns (policy, ledger, hub,
+    aggregator)."""
+    from repro_torch.core import ResourceManager
+    from repro_torch.obs import (RecalibratingPolicy,
+                                 RegionalRecalibratingPolicy, Tracer,
+                                 WindowedServiceProbe, hub_with_exporters)
+    from repro_torch.sim import SCENARIOS, FleetSimulator, RepairPolicy
+    n = OBS_REGIONAL_STREAMS
+    sc = SCENARIOS["regional_drift"](n_streams=n, duration_h=OBS_HOURS,
+                                     seed=OBS_SEED)
+    cat = sc.catalog()
+    inner = RepairPolicy(ResourceManager(cat), migration_budget=n // 8,
+                         defrag_ratio=1.25)
+    hub, exporter, agg = hub_with_exporters(
+        jsonl_path, histograms=("replan.wall_ms", "fleet.slo"))
+    if regional:
+        policy = RegionalRecalibratingPolicy(
+            inner, sc.service, group_of=sc.groups.__getitem__,
+            telemetry=hub, tracer=Tracer())
+    else:
+        policy = RecalibratingPolicy(
+            inner, sc.service, probe=WindowedServiceProbe(sc.service),
+            telemetry=hub, tracer=Tracer())
+    ledger = FleetSimulator(sc.demand, policy, cat, sc.config,
+                            service=sc.service, telemetry=hub).run()
+    if exporter is not None:
+        exporter.close()
+    return policy, ledger, hub, agg
+
+
+def _spans_equal(a, b) -> bool:
+    return (a.name == b.name and a.t == b.t and a.wall_ms == b.wall_ms
+            and a.attrs == b.attrs and len(a.children) == len(b.children)
+            and all(_spans_equal(x, y)
+                    for x, y in zip(a.children, b.children)))
+
+
+def _obs_round_trips(what: str, hub, tracer, jsonl_path: str,
+                     trace_path: str) -> dict:
+    """The JSONL file read back must equal the hub's points, and the
+    tracer's Chrome trace, written and read back, its span trees."""
+    from repro_torch.obs import (load_jsonl_metrics, spans_from_chrome_trace,
+                                 write_chrome_trace)
+    loaded = load_jsonl_metrics(jsonl_path)
+    if loaded != hub.points:
+        fail(f"{what}: the JSONL export does not read back as the hub's "
+             f"{len(hub.points)} points ({len(loaded)} read)")
+    events = write_chrome_trace(trace_path, tracer)
+    rebuilt = spans_from_chrome_trace(trace_path)
+    if len(rebuilt) != len(tracer.spans) or not all(
+            _spans_equal(x, y) for x, y in zip(rebuilt, tracer.spans)):
+        fail(f"{what}: the Chrome trace does not rebuild the span trees")
+    return {"jsonl_points": len(loaded), "trace_spans": len(rebuilt),
+            "trace_events": events}
+
+
+def _obs_summary(policy, ledger, points: int) -> dict:
+    out = {"recalibrations": tuple(policy.recalibrations), "points": points,
+           "spans": len(policy.tracer.spans), "totals": ledger.totals()}
+    if hasattr(policy, "recal_groups"):
+        out["recal_groups"] = tuple((t, tuple(g))
+                                    for t, g in policy.recal_groups)
+        out["fired_groups"] = policy.regional.fired_groups()
+    return out
+
+
+def obs_overhead() -> dict:
+    """``benchmarks/obs_export.py``'s overhead on the port: a ``mega_city``
+    day at 10,000 streams under ``ReactivePolicy`` with and without a hub,
+    JSONL exporter and aggregator attached, interleaved min-of-3 after one
+    warming run."""
+    import tempfile
+    from repro_torch.core import ResourceManager
+    from repro_torch.obs import hub_with_exporters
+    from repro_torch.sim import SCENARIOS, FleetSimulator, ReactivePolicy
+
+    def once(telemetry: bool) -> float:
+        sc = SCENARIOS["mega_city"](n_streams=OBS_OVERHEAD_STREAMS,
+                                    duration_h=OBS_HOURS, seed=OBS_SEED)
+        cat = sc.catalog()
+        policy = ReactivePolicy(ResourceManager(cat))
+        if not telemetry:
+            t0 = time.perf_counter()
+            FleetSimulator(sc.demand, policy, cat, sc.config).run()
+            return time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            hub, exporter, _ = hub_with_exporters(
+                os.path.join(tmp, "mega.jsonl"))
+            t0 = time.perf_counter()
+            FleetSimulator(sc.demand, policy, cat, sc.config,
+                           telemetry=hub).run()
+            wall = time.perf_counter() - t0
+            exporter.close()
+        return wall
+
+    once(False)
+    samples = [(once(False), once(True)) for _ in range(3)]
+    t_off = min(s[0] for s in samples)
+    t_on = min(s[1] for s in samples)
+    return {"streams": OBS_OVERHEAD_STREAMS, "duration_h": OBS_HOURS,
+            "samples_s": samples, "wall_off_s": t_off, "wall_on_s": t_on,
+            "overhead": (t_on - t_off) / t_off,
+            "reference_bar": OBS_MAX_OVERHEAD}
+
+
+def check_obs(overhead: bool = True) -> dict:
+    """Phase 12, host only: the fleet-wide loop on ``drifting_scene`` and
+    both regional loops on ``regional_drift`` against the reference's
+    outcomes, the per-group arm's JSONL and Chrome-trace round trips, and
+    (``overhead``) the telemetry overhead on a ``mega_city`` day. Returns the
+    report; any mismatch is fatal."""
+    import tempfile
+    _no_reference_loaded("observability")
+    t0 = time.perf_counter()
+    arms, host_s = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arm, online in (("stale", False), ("online", True)):
+            t = time.perf_counter()
+            policy, ledger = _obs_drift_arm(online)
+            host_s[f"drifting_scene {arm}"] = time.perf_counter() - t
+            arms[("drifting_scene", arm)] = _obs_summary(
+                policy, ledger, len(policy.telemetry.points))
+        for arm, regional in (("fleet-wide", False), ("per-group", True)):
+            jsonl = os.path.join(tmp, "regional.jsonl") if regional else None
+            t = time.perf_counter()
+            policy, ledger, hub, _ = _obs_regional_arm(regional, jsonl)
+            host_s[f"regional_drift {arm}"] = time.perf_counter() - t
+            arms[("regional_drift", arm)] = _obs_summary(policy, ledger,
+                                                         len(hub.points))
+            if regional:
+                exports = _obs_round_trips(
+                    "regional_drift per-group", hub, policy.tracer, jsonl,
+                    os.path.join(tmp, "regional_trace.json"))
+    for key, want in OBS_EXPECTED.items():
+        got = arms[key]
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad:
+            fail(f"{' '.join(key)}: differs from the reference "
+                 f"(got, want): {bad}")
+    fleet = arms[("regional_drift", "fleet-wide")]["totals"]
+    group = arms[("regional_drift", "per-group")]["totals"]
+    if group["total_cost"] > fleet["total_cost"] or \
+            group["migrations"] >= fleet["migrations"]:
+        fail("per-group recalibration did not match fleet-wide on cost "
+             "with fewer migrations")
+    host = time.perf_counter() - t0
+    print(f"the observability loop: {len(arms)} arms equal the reference's "
+          f"({host:.3f} s on the host); exports round-trip: {exports}")
+    report = {"arms": {" ".join(k): v for k, v in arms.items()},
+              "exports": exports, "host_s": host_s, "host_s_total": host}
+    if overhead:
+        o = report["overhead"] = obs_overhead()
+        print(f"telemetry overhead: mega_city {OBS_HOURS:g} h x "
+              f"{o['streams']} streams {o['wall_off_s']:.4f} s -> "
+              f"{o['wall_on_s']:.4f} s ({o['overhead']:+.2%}; the "
+              f"reference's bar {OBS_MAX_OVERHEAD:.0%}, not a gate here)")
+    return report
+
+
+def obs_engine_loop(torch, cfg, params, jsonl_path: str, *,
+                    window_s: float = OBS_WINDOW_S) -> dict:
+    """Phase 12's loop over two engines on ``params`` (one per region of
+    ``OBS_REGIONS``, wherever the weights live): warm each engine, profile
+    ``OBS_PROFILE_WINDOWS`` windows, take the startup calibration from
+    ``EngineWindowProbe.initial_calibration()`` (which must equal the
+    engines' ``ServiceCalibration.from_engine``), poll once, then run
+    ``OBS_WINDOWS`` windows in which each region's ``StreamSimulator``
+    enqueues ``window_s`` seconds of frames, its engine drains, and a
+    ``RegionalRecalibratingPolicy`` over REPAIR decides over the cameras'
+    streams, its hub writing JSONL to ``jsonl_path``; from window
+    ``OBS_STEP_AT`` the drifted region serves ``OBS_LOADED_CAMERAS``
+    cameras. Returns what ``check_obs_loop`` reads."""
+    from repro_torch.core import ResourceManager, fig6_catalog
+    from repro_torch.core.workload import PROGRAMS, Stream
+    from repro_torch.launch.serve import NEW_TOKENS, PROMPT_LEN
+    from repro_torch.obs import (EngineWindowProbe,
+                                 RegionalRecalibratingPolicy, Tracer,
+                                 hub_with_exporters)
+    from repro_torch.serving import (ContinuousBatchingEngine, Request,
+                                     StreamSimulator)
+    from repro_torch.sim import RepairPolicy, ServiceCalibration
+
+    class RecordingProbe(EngineWindowProbe):
+        """The engines' probe, keeping each poll's merged measurement."""
+
+        def __init__(self, engines):
+            super().__init__(engines, tokens_per_frame=float(NEW_TOKENS))
+            self.windows = []
+
+        def measure(self, t):
+            rates = super().measure(t)
+            self.windows.append((t, rates))
+            return rates
+
+    cameras = dict(OBS_REGIONS)
+    engines = {region: ContinuousBatchingEngine(cfg, params, max_slots=8,
+                                                cache_len=128)
+               for region in cameras}
+    sims = {region: StreamSimulator(engines[region], prompt_len=PROMPT_LEN,
+                                    new_tokens=NEW_TOKENS, seed=i)
+            for i, region in enumerate(cameras)}
+
+    def demand(region: str, loaded: bool) -> dict:
+        n = (OBS_LOADED_CAMERAS if loaded and region == OBS_DRIFTED_REGION
+             else OBS_CAMERAS)
+        return {f"{cameras[region]}-{i}": OBS_FPS for i in range(n)}
+
+    def window(loaded: bool) -> dict:
+        """One window: each camera's frames arrive a frame period apart, so
+        the queue interleaves the cameras and every round of slots serves
+        each of them, as the lifetime profile assumes; returns each
+        region's drain seconds."""
+        drain_s = {}
+        for region in cameras:
+            for _ in range(round(window_s * OBS_FPS)):
+                sims[region].tick(demand(region, loaded), dt_s=1.0 / OBS_FPS)
+            t = time.perf_counter()
+            engines[region].drain()
+            drain_s[region] = time.perf_counter() - t
+        return drain_s
+
+    # the first calls of each engine, outside the profile; their prefills
+    # and decode steps are kept for the launch count
+    ran = {"prefills": 0, "decode_steps": 0}
+    for eng in engines.values():
+        eng.submit(Request("warmup", np.zeros(PROMPT_LEN, np.int32),
+                           max_new_tokens=NEW_TOKENS))
+        eng.drain()
+        for k in ran:
+            ran[k] += eng.stats[k]
+        eng.reset_stats()
+    t0 = time.perf_counter()
+    for _ in range(OBS_PROFILE_WINDOWS):
+        window(False)
+    probe = RecordingProbe(engines)
+    calibration = probe.initial_calibration()
+    from_engines = {}
+    for eng in engines.values():
+        from_engines.update(ServiceCalibration.from_engine(
+            eng, tokens_per_frame=float(NEW_TOKENS)).rates_tokens_per_s)
+    if from_engines != calibration.rates_tokens_per_s:
+        fail("EngineWindowProbe.initial_calibration() differs from the "
+             "engines' ServiceCalibration.from_engine")
+    probe.measure(-1.0)          # the first window must not span the profile
+    probe.windows.clear()
+    hub, exporter, agg = hub_with_exporters(jsonl_path)
+    policy = RegionalRecalibratingPolicy(
+        RepairPolicy(ResourceManager(fig6_catalog())), probe,
+        group_of=probe.group_of, probe=probe, calibration=calibration,
+        telemetry=hub, tracer=Tracer())
+    drains = []
+    for w in range(OBS_WINDOWS):
+        loaded = w >= OBS_STEP_AT
+        drains.append(window(loaded))
+        streams = [Stream(sid, PROGRAMS["ZF"], fps=fps, camera=cameras[r])
+                   for r in cameras for sid, fps in demand(r, loaded).items()]
+        policy.decide(float(w), streams)
+    exporter.close()
+    for eng in engines.values():
+        for k in ran:
+            ran[k] += eng.stats[k]
+    return {"policy": policy, "probe": probe, "calibration": calibration,
+            "hub": hub, "agg": agg, "streams": streams, "ran": ran,
+            "drain_s": drains,
+            "loop_s": time.perf_counter() - t0, "jsonl_path": jsonl_path}
+
+
+def check_obs_loop(loop: dict, workdir: str) -> dict:
+    """Phase 12's checks on ``obs_engine_loop``'s result: only the drifted
+    region fires, once, within ``hold_ticks`` + 1 windows of the load step;
+    its re-profile covers exactly that region's streams and leaves every
+    other stream's startup rate; exactly one adaptive event is flagged
+    ``recalibration``, a forced replan; ``camera_region_groups`` agrees
+    with the probe's groups; both exports round-trip. Returns the report."""
+    from repro_torch.obs import camera_region_groups
+    policy, probe = loop["policy"], loop["probe"]
+    calibration, streams = loop["calibration"], loop["streams"]
+    hold = policy.regional.config.hold_ticks
+    per_window = []
+    for verdict, (t, rates), drain_s in zip(policy.regional.history,
+                                            probe.windows, loop["drain_s"]):
+        row = {"t": t, "drain_s": drain_s}
+        for region in dict(OBS_REGIONS):
+            v = verdict.verdicts.get(region)
+            sids = [s for s in rates if probe.group_of(s) == region]
+            row[region] = {
+                "rel_error": None if v is None else v.rel_error,
+                "streak": None if v is None else v.streak,
+                "streams": len(sids),
+                "mean_tokens_per_s": (sum(rates[s] for s in sids) / len(sids)
+                                      if sids else None)}
+        per_window.append(row)
+        print(f"obs window {t:g}: " + "; ".join(
+            f"{r} rel_error {row[r]['rel_error']} streak {row[r]['streak']}"
+            f" ({row[r]['streams']} streams, mean "
+            f"{row[r]['mean_tokens_per_s']} tokens/s, drain "
+            f"{drain_s[r]:.3f} s)"
+            for r in dict(OBS_REGIONS)), flush=True)
+    fired = policy.regional.fired_groups()
+    if fired != (OBS_DRIFTED_REGION,):
+        fail(f"regions fired {fired}; only {OBS_DRIFTED_REGION} should")
+    if len(policy.recal_groups) != 1 or \
+            policy.recal_groups[0][1] != (OBS_DRIFTED_REGION,):
+        fail(f"recalibrations {policy.recal_groups}; expected one, of "
+             f"{OBS_DRIFTED_REGION}")
+    t_fired = policy.recal_groups[0][0]
+    if not 0 <= t_fired - OBS_STEP_AT <= hold + 1:
+        fail(f"fired at window {t_fired:g}, the load step at {OBS_STEP_AT}"
+             f" (at most hold_ticks + 1 = {hold + 1} windows after it)")
+    measured = dict(probe.windows)[t_fired]
+    scope = {sid for sid in measured
+             if probe.group_of(sid) == OBS_DRIFTED_REGION}
+    drifted = {s.stream_id for s in streams
+               if probe.group_of(s.stream_id) == OBS_DRIFTED_REGION}
+    if scope != drifted or len(drifted) != OBS_LOADED_CAMERAS:
+        fail(f"re-profiled {sorted(scope)}; the drifted region serves "
+             f"{sorted(drifted)}")
+    (span,) = policy.tracer.find("recalibrate")
+    if span.attrs["scoped_streams"] != len(scope):
+        fail(f"the repair's scope holds {span.attrs['scoped_streams']} "
+             f"streams, not the {len(scope)} re-profiled")
+    before = calibration.rates_tokens_per_s
+    after = policy.calibration.rates_tokens_per_s
+    if set(after) != set(before) | scope or any(
+            after[s] != (measured[s] if s in scope else before[s])
+            for s in after):
+        fail("the recalibration changed rates outside the drifted region, "
+             "or did not adopt its measured ones")
+    flagged = [e for e in policy.adaptive.events if e.recalibration]
+    if len(flagged) != 1 or flagged[0].action != "forced-replan":
+        fail(f"adaptive events flagged as recalibrations: {flagged}")
+    groups = camera_region_groups(streams)
+    if groups != {s.stream_id: probe.group_of(s.stream_id)
+                  for s in streams}:
+        fail(f"camera_region_groups {groups} differs from the probe's")
+    exports = _obs_round_trips("the engines' loop", loop["hub"],
+                               policy.tracer, loop["jsonl_path"],
+                               os.path.join(workdir, "obs_trace.json"))
+    wall = loop["agg"].instruments["replan.wall_ms"].summary()
+    print(f"obs: {OBS_DRIFTED_REGION} fired at window {t_fired:g} (load "
+          f"step at {OBS_STEP_AT}, hold_ticks {hold}), scope "
+          f"{len(scope)} streams; replan.wall_ms p50 {wall['p50']:.3f} p99 "
+          f"{wall['p99']:.3f} over {wall['count']}; exports {exports}")
+    return {"windows": per_window, "fired_groups": list(fired),
+            "fired_at_window": t_fired, "step_at_window": OBS_STEP_AT,
+            "hold_ticks": hold, "scoped_streams": len(scope),
+            "calibration_tokens_per_s": dict(before),
+            "recalibrated_tokens_per_s": {s: after[s] for s in sorted(scope)},
+            "flagged_events": [(e.t, e.action, e.migrations)
+                               for e in flagged],
+            "replan_wall_ms": {k: wall.get(k)
+                               for k in ("count", "p50", "p95", "p99")},
+            "exports": exports, "prefills": loop["ran"]["prefills"],
+            "decode_steps": loop["ran"]["decode_steps"],
+            "loop_s": loop["loop_s"]}
+
+
+def check_obs_engines(torch, wrappers: dict) -> tuple:
+    """Phase 12 on the card: ``obs_engine_loop`` over two full-width
+    olmo-1b engines on one set of fp32 weights, with every launch count set
+    to 0 just before and read just after (flash: 16 a prefill, warmup
+    included; nothing else), then ``check_obs_loop``. Returns (report,
+    counts)."""
+    import tempfile
+    from repro_torch.models.config import get_config
+    _no_reference_loaded("observability")
+    cfg = get_config("olmo-1b")
+    params = _params(torch, cfg)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in wrappers.values():
+            fn.launches = 0
+        loop = obs_engine_loop(torch, cfg, params,
+                               os.path.join(tmp, "obs.jsonl"))
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        report = check_obs_loop(loop, tmp)
+    ran = loop["ran"]
+    for name, got in counts.items():
+        want = expected_launches(cfg, name, ran["prefills"],
+                                 ran["decode_steps"])
+        if got != want:
+            fail(f"obs loop: {name} launched {got} times; expected {want} "
+                 f"for {ran['prefills']} prefills")
+    if counts["flash_attention"] == 0:
+        fail("obs loop: the flash kernel never launched")
+    print(f"obs loop: launches {counts} for {ran['prefills']} prefills and "
+          f"{ran['decode_steps']} decode steps, warmup included "
+          f"({report['loop_s']:.2f} s)")
+    report["launches"] = counts
+    del loop, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report, counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2613,11 +3138,23 @@ def main() -> None:
     # phase 6 measured on the card
     sim_report = check_sim()
     sim_report["calibrated_day"] = check_calibrated_day(calibration)
+
+    # 12) the observability loop: the JAX package's two obs benchmarks on
+    # the host, then drift detected live across two olmo-1b engines, a main
+    # path whose launches join the sum
+    obs_report = check_obs()
+    obs_report["engines"], counts = check_obs_engines(torch, wrappers)
+    for name, n in counts.items():
+        records[name]["launches"] += n
+        if n:
+            records[name]["launches_by_path"][OBS_PATH] = n
     print(json.dumps({"vgg": vgg_report}))
     print(card, flush=True)
     print(json.dumps({"manager": manager_report}))
     print(card, flush=True)
     print(json.dumps({"sim": sim_report}))
+    print(card, flush=True)
+    print(json.dumps({"obs": obs_report}))
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {
