@@ -200,10 +200,35 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    the two engines (warmup included). Each window's per-region
    ``rel_error``, the ``replan.wall_ms`` p50/p99, a card line, then one
    ``{"obs": ...}`` line.
-13. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
-   its main paths, served, trained and the observability loop's;
-   ``launches_by_path`` also holds the phase-5 paths), then the last line
-   ``{"ok": true, "device": {...}}``.
+13. The distributed layer (``launch.mesh``, ``launch.sharding``, the
+   sharded MoE forms, ``launch.dryrun``), with ``jax`` and ``repro`` absent
+   from ``sys.modules``. A default process group of one NCCL rank over a
+   ``FileStore`` and ``make_smoke_mesh()`` on the card. (a) The main path:
+   phase 9's full-width olmo-1b training through ``launch.train.train(...,
+   mesh=...)``, the state and batches DTensors placed by the sharding rules,
+   4 steps with every launch count set to 0 just before and read just after
+   (32 flash forwards and 16 backwards a step, through the local-heads
+   boundary of ``layers._heads_local``, nothing else), then the same steps from
+   the same weights without the mesh: each step's loss and grad_norm within
+   ``TRAIN_REL_TOL``; again at 2 microbatches (``batch_axes`` the data
+   axes) for 2 steps against the unmeshed 2-microbatch run; each run's host
+   seconds a step (the DTensor dispatch's cost shows there). (b) One
+   qwen3-moe-30b-a3b MoE layer at its published widths in bf16 (1.2 GB of
+   experts), capacity factor 8, T = 32 and 128: ``apply_moe_local``, the
+   ``expert_shard_constraint`` path and ``apply_moe_shard_map`` on the mesh
+   against the global dispatch, within bf16 2e-2, aux within 1e-6; the
+   process group destroyed. (c) On the host, in subprocesses started
+   together, each with a timeout: ``python -m repro_torch.launch.dryrun``
+   for olmo-1b and qwen3-moe-30b-a3b at ``decode_32k`` and olmo-1b at
+   ``train_4k`` on ``pod1`` (a fake process group of 256 ranks, meta
+   tensors): per-device FLOPs, bytes, collective counts, trace seconds;
+   then ``plan_gpu_fleet`` over phase 6's measured olmo-1b rates without
+   and with the records (the per-token FLOPs, $/hour and instances of
+   each). A card line, then one ``{"dist": ...}`` line.
+14. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
+   its main paths, served, trained, the observability loop's and the
+   meshed training's; ``launches_by_path`` also holds the phase-5 paths),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout, so fp32 matrix products are full fp32.
 """
@@ -575,6 +600,18 @@ OBS_CAMERAS, OBS_LOADED_CAMERAS, OBS_FPS = 4, 16, 2.0
 OBS_WINDOW_S = 16.0
 OBS_PROFILE_WINDOWS, OBS_WINDOWS, OBS_STEP_AT = 3, 10, 4
 OBS_PATH = "olmo-1b obs loop, two regions (phase 12)"
+# phase 13, the distributed layer: phase 9's training on a 1x1 NCCL mesh
+# (4 steps; 2 more at 2 microbatches), one qwen3-moe-30b-a3b MoE layer at its
+# published widths in bf16 with ample capacity (so no form drops a token),
+# and the dry run's records on this machine's host
+DIST_PATH = "olmo-1b train, 1×1 NCCL mesh (phase 13)"
+DIST_MB_PATH = "olmo-1b train, 2 microbatches, 1×1 NCCL mesh (phase 13)"
+DIST_MB_STEPS = 2
+DIST_MOE_ARCH, DIST_MOE_TOKENS, DIST_MOE_CF = "qwen3-moe-30b-a3b", (32, 128), 8.0
+DIST_AUX_TOL = 1e-6
+DIST_DRYRUN = (("olmo-1b", "decode_32k"), ("qwen3-moe-30b-a3b", "decode_32k"),
+               ("olmo-1b", "train_4k"))
+DIST_DRYRUN_TIMEOUT_S = 300
 
 
 def fail(msg: str) -> None:
@@ -1706,7 +1743,7 @@ def _device_kernels(torch, prof) -> dict:
     return by_name
 
 
-MOE_PARTS = {"_route": "moe.route", "_aux_loss": "moe.route",
+MOE_PARTS = {"_route": "moe.route", "_expert_stats": "moe.route",
              "_slots": "moe.route", "_dispatch": "moe.dispatch",
              "_experts": "moe.experts", "_combine": "moe.combine"}
 
@@ -3005,6 +3042,247 @@ def check_obs_engines(torch, wrappers: dict) -> tuple:
     return report, counts
 
 
+def _train_match(what: str, got: dict, want: dict) -> float:
+    """The largest relative difference, step by step, of ``got``'s loss and
+    grad_norm from ``want``'s; fails past ``TRAIN_REL_TOL``."""
+    worst = 0.0
+    for key in ("loss_history", "grad_norm_history"):
+        for a, b in zip(got[key], want[key], strict=True):
+            if not (np.isfinite(a) and np.isfinite(b)):
+                fail(f"{what}: {key} not finite: {a}, {b}")
+            worst = max(worst, abs(a - b) / abs(b))
+            if abs(a - b) / abs(b) > TRAIN_REL_TOL:
+                fail(f"{what}: {key} {got[key]} vs unmeshed {want[key]}: "
+                     f"{abs(a - b) / abs(b):.3e} > {TRAIN_REL_TOL}")
+    return worst
+
+
+def check_dist_train(torch, wrappers: dict, mesh) -> tuple:
+    """Phase 13a, the main path: ``launch.train.train`` of full-width
+    olmo-1b (phase 9's batch, fp32, remat, the kernels on) on ``mesh`` (1x1
+    over NCCL) for ``TRAIN_STEPS`` steps, every launch count set to 0 just
+    before and read just after (32 flash forwards and 16 backwards a step,
+    nothing else); the same steps from the same weights without the mesh,
+    each step's loss and grad_norm within ``TRAIN_REL_TOL``; then
+    ``DIST_MB_STEPS`` steps at 2 microbatches (``batch_axes`` the mesh's
+    data axes) against the unmeshed 2-microbatch run, counted too. Each
+    run's host seconds a step. Returns (report, counts by path)."""
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as M
+    from repro_torch.models.config import get_config
+
+    n_layers = get_config(TRAIN_ARCH).num_layers
+    kw = dict(reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ, log_every=1,
+              device="cuda", opts=M.ModelOptions())
+    runs, counts = {}, {}
+    for label, steps, mb in ((DIST_PATH, TRAIN_STEPS, 1),
+                             (DIST_MB_PATH, DIST_MB_STEPS, 2)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        for fn in wrappers.values():
+            fn.launches = 0
+        meshed = train(TRAIN_ARCH, steps=steps, microbatches=mb, mesh=mesh,
+                       **kw)
+        counts[label] = {name: fn.launches for name, fn in wrappers.items()}
+        want = {"flash_attention": 2 * n_layers * steps * mb,
+                "flash_attention_bwd": n_layers * steps * mb}
+        for name, n in counts[label].items():
+            if n != want.get(name, 0):
+                fail(f"{label}: {name} launched {n} times in {steps} steps, "
+                     f"want {want.get(name, 0)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        plain = train(TRAIN_ARCH, steps=steps, microbatches=mb, **kw)
+        runs[label] = {
+            "microbatches": mb, "steps": steps,
+            "loss_meshed": meshed["loss_history"],
+            "loss_unmeshed": plain["loss_history"],
+            "grad_norm_meshed": meshed["grad_norm_history"],
+            "grad_norm_unmeshed": plain["grad_norm_history"],
+            "max_rel_diff": _train_match(label, meshed, plain),
+            "step_s_meshed": meshed["step_s_history"],
+            "step_s_unmeshed": plain["step_s_history"],
+            "launches": counts[label]}
+        print(f"{label}: loss {meshed['loss_history']} (unmeshed "
+              f"{plain['loss_history']}); step s meshed "
+              f"{meshed['step_s_history']}, unmeshed "
+              f"{plain['step_s_history']}; launches {counts[label]}",
+              flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, counts
+
+
+def check_dist_moe(torch, mesh) -> dict:
+    """Phase 13b: one qwen3-moe-30b-a3b MoE layer at its published widths
+    in bf16 (128 experts of 768, top 8, d_model 2048; weights from a seeded
+    generator), capacity factor ``DIST_MOE_CF`` so no form drops a token,
+    at T = 32 (1 × 32) and 128 (4 × 32) tokens: on ``mesh``,
+    ``apply_moe_local``, ``apply_moe(expert_shard_constraint=True)`` and
+    ``apply_moe_shard_map`` against the global dispatch on plain tensors,
+    the output within bf16 2e-2 and the aux within ``DIST_AUX_TOL``."""
+    import dataclasses
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models import moe
+    from repro_torch.models.config import get_config
+
+    cfg = dataclasses.replace(get_config(DIST_MOE_ARCH),
+                              capacity_factor=DIST_MOE_CF)
+    D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    draw = lambda shape, std: (torch.randn(shape, generator=gen,
+                                           device="cuda") * std).to(
+        torch.bfloat16)
+    params = {"router": draw((D, E), D ** -0.5),
+              "w1": draw((E, D, F), D ** -0.5),
+              "w3": draw((E, D, F), D ** -0.5),
+              "w2": draw((E, F, D), F ** -0.5)}
+    policy = SH.ShardingPolicy.for_arch(cfg)
+    placed = {k: SH.distribute(v, SH.param_spec(f"layers/0/ffn/{k}", v, mesh,
+                                                policy), mesh)
+              for k, v in params.items()}
+    forms = {
+        "apply_moe_local": lambda x: moe.apply_moe_local(placed, x, cfg),
+        "apply_moe(expert_shard_constraint=True)": lambda x: moe.apply_moe(
+            placed, x, cfg, expert_shard_constraint=True),
+        "apply_moe_shard_map": lambda x: moe.apply_moe_shard_map(
+            placed, x, cfg, mesh, dp_axes=("data",))}
+    report = {"weights_bytes": sum(v.numel() * 2 for v in params.values())}
+    for T in DIST_MOE_TOKENS:
+        B = T // 32
+        x = draw((B, 32, D), 1.0)
+        with torch.no_grad():
+            want, aux_want = moe.apply_moe(params, x, cfg)
+            dx = SH.distribute(x, (("data",), None, None), mesh)
+            for name, form in forms.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, aux = form(dx)
+                out, aux = out.full_tensor(), aux.full_tensor()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                err = _compare(f"{name} T={T}", (B, 32, D), torch.bfloat16,
+                               out, want, BF16_TOL)
+                aux_err = abs(aux.item() - aux_want.item())
+                if not aux_err <= DIST_AUX_TOL:
+                    fail(f"{name} T={T}: aux {aux.item()} vs "
+                         f"{aux_want.item()}")
+                report[f"{name} T={T}"] = {"max_abs_err": err,
+                                           "aux_abs_err": aux_err,
+                                           "host_ms": ms}
+                print(f"moe on the mesh: {name} T={T} max|err| {err:.3e}, "
+                      f"aux err {aux_err:.1e}, {ms:.2f} ms", flush=True)
+    del params, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def check_dryrun(calibration) -> dict:
+    """Phase 13c on this machine's host: ``python -m
+    repro_torch.launch.dryrun`` for each of ``DIST_DRYRUN`` on ``pod1``, in
+    subprocesses started together (one fake process group each), each with
+    a timeout; each record's per-device FLOPs, bytes, collective counts and
+    trace seconds. Then the H100 fleet planned from phase 6's measured
+    olmo-1b rates without and with the records (``dryrun_dir``): the
+    per-token FLOPs and each plan's $/hour and instances; the dry run's
+    per-token FLOPs must exceed the closed form's (attention over the
+    32k-token cache)."""
+    import tempfile
+    from repro_torch.core.gpu_catalog import (LLMStream, plan_gpu_fleet,
+                                              streams_from_measured)
+    from repro_torch.models.config import get_config
+
+    report = {}
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        procs = {(a, sh): subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+             "--shape", sh, "--mesh", "pod1", "--out", out], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for a, sh in DIST_DRYRUN}
+        logs = {}
+        try:
+            for key, proc in procs.items():
+                logs[key], _ = proc.communicate(
+                    timeout=DIST_DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            logs = None
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        if logs is None:
+            fail(f"dry run: no end in {DIST_DRYRUN_TIMEOUT_S} s")
+        for (a, sh), proc in procs.items():
+            if proc.returncode != 0:
+                fail(f"dry run {a} x {sh} exited {proc.returncode}: "
+                     f"{logs[(a, sh)][-2000:]}")
+            with open(os.path.join(out, f"{a}_{sh}_pod1.json")) as f:
+                rec = json.load(f)
+            keep = {k: rec[k] for k in (
+                "flops_per_device", "bytes_per_device",
+                "collective_bytes_per_device", "collectives", "memory",
+                "trace_s", "mesh_shape")}
+            if not keep["flops_per_device"] > 0:
+                fail(f"dry run {a} x {sh}: no FLOPs")
+            report[f"{a} x {sh} x pod1"] = keep
+            print(f"dry run {a} x {sh} x pod1: {keep['flops_per_device']:.6g}"
+                  f" FLOP, {keep['bytes_per_device']:.6g} B a device, "
+                  f"collectives {keep['collectives']['counts']}, "
+                  f"{keep['trace_s']} s", flush=True)
+        streams = streams_from_measured(
+            SIM_CALIBRATED_ARCH, dict(calibration.rates_tokens_per_s))
+        cfg = get_config(SIM_CALIBRATED_ARCH)
+        closed = 2.0 * cfg.active_param_count()
+        rec = report[f"{SIM_CALIBRATED_ARCH} x decode_32k x pod1"]
+        traced = rec["flops_per_device"] * 256 / 128
+        req = LLMStream("s", SIM_CALIBRATED_ARCH, 1.0)
+        for d, want in ((out, traced), (None, closed)):
+            if abs(req.requirement(d)[0] * 1e12 - want) > 1e-9 * want:
+                fail(f"LLMStream.requirement({d}) is not {want:.6g} FLOP "
+                     "a token")
+        if not traced > closed:
+            fail(f"dry run per-token FLOPs {traced:.4g} <= closed form "
+                 f"{closed:.4g}")
+        plans = {}
+        for label, d in (("closed form", None), ("dry run", out)):
+            plans[label] = {s: plan_gpu_fleet(streams, d, strategy=s)
+                            for s in ("per-stream", "uniform-big", "packed")}
+    report["planner"] = {
+        "streams_tokens_per_s": dict(calibration.rates_tokens_per_s),
+        "flops_per_token": {"closed form": closed, "dry run": traced,
+                            "ratio": traced / closed},
+        "plans": {label: {s: [p["hourly_cost"], p["instances"]]
+                          for s, p in ps.items()}
+                  for label, ps in plans.items()}}
+    print(f"planner from the dry run: {json.dumps(report['planner'])}",
+          flush=True)
+    return report
+
+
+def check_dist(torch, wrappers: dict, calibration) -> tuple:
+    """Phase 13: a world of one NCCL rank over a ``FileStore`` and a 1x1
+    mesh on the card, (a) and (b) on it, the process group destroyed, then
+    (c). Returns ({"dist": report}'s value, counts by path)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_smoke_world, make_smoke_mesh
+    _no_reference_loaded("distributed layer")
+    init_smoke_world("cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"phase 13: backend {dist.get_backend()}, want nccl")
+        mesh = make_smoke_mesh()
+        train_report, counts = check_dist_train(torch, wrappers, mesh)
+        moe_report = check_dist_moe(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    report = {"train": train_report, "moe": moe_report,
+              "dryrun": check_dryrun(calibration)}
+    return report, counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3148,6 +3426,14 @@ def main() -> None:
         records[name]["launches"] += n
         if n:
             records[name]["launches_by_path"][OBS_PATH] = n
+    # 13) the distributed layer: training on a 1x1 NCCL mesh (a main path
+    # whose launches join the sum), the sharded MoE forms, the dry run
+    dist_report, by_path = check_dist(torch, wrappers, calibration)
+    for path, counts in by_path.items():
+        for name, n in counts.items():
+            records[name]["launches"] += n
+            if n:
+                records[name]["launches_by_path"][path] = n
     print(json.dumps({"vgg": vgg_report}))
     print(card, flush=True)
     print(json.dumps({"manager": manager_report}))
@@ -3155,6 +3441,8 @@ def main() -> None:
     print(json.dumps({"sim": sim_report}))
     print(card, flush=True)
     print(json.dumps({"obs": obs_report}))
+    print(card, flush=True)
+    print(json.dumps({"dist": dist_report}))
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

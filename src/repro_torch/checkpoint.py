@@ -228,6 +228,14 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return _map_tree(leaf, param_shapes(cfg))
 
 
+def meta_params(cfg: ArchConfig, dtype: torch.dtype = torch.float32) -> dict:
+    """``init_params``' tree as meta tensors of the same shapes and dtypes:
+    the dry run's parameters, which allocate nothing."""
+    return _map_tree(lambda path, shape: torch.empty(
+        shape, dtype=_leaf_dtype(path, dtype), device="meta"),
+        param_shapes(cfg))
+
+
 def _tree_key(cfg: ArchConfig, path: str) -> tuple[str, int | None]:
     """Port path ``<prefix>/layers/<l>/...`` -> (npz key ``<prefix>/scan/[j]
     /...`` or ``<prefix>/rem/[i]/...``, repeat index); any other path is

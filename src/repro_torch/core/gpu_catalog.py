@@ -11,14 +11,21 @@ datasheet peak with no assumed sustained fraction (the TPU catalog's
 (``UTILIZATION_CAP``) applies on top, as for every catalog. Prices are
 placeholders with a regional spread, not quotes.
 
-Requirement vectors are closed-form: 2 FLOPs per active parameter per
-decoded token, and bf16 weights plus a bf16 KV cache of ``kv_seq`` tokens
-resident per stream.
+The HBM requirement is bf16 weights plus a bf16 KV cache of ``kv_seq``
+tokens resident per stream. The compute requirement is the decode step's
+per-token FLOPs from the port's dry run (``launch/dryrun.py``: the
+``decode_32k`` record on ``pod1``, per-device FLOPs × 256 devices / 128
+sequences) when a ``dryrun_dir`` holds one, as the reference reads its
+compiled step's; else the closed form, 2 FLOPs per active parameter. The
+closed form leaves out attention over the resident cache, which at 32k
+tokens is most of a dense model's decode work.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import json
+import os
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -60,10 +67,18 @@ class LLMStream:
     tokens_per_s: float
     kv_seq: int = 32_768          # resident context per stream
 
-    def requirement(self) -> tuple[float, float]:
-        """(TFLOP/s needed, HBM GiB resident), in closed form."""
+    def requirement(self, dryrun_dir: Optional[str] = None
+                    ) -> tuple[float, float]:
+        """(TFLOP/s needed, HBM GiB resident): the per-token FLOPs of the
+        dry run's record in ``dryrun_dir`` if there is one, else the closed
+        form."""
         cfg = get_config(self.arch)
         flops_tok = 2.0 * cfg.active_param_count()      # decode forward
+        rec = _load_dryrun(dryrun_dir, self.arch, "decode_32k") \
+            if dryrun_dir else None
+        if rec and rec.get("flops_per_device", 0) > 0:
+            # per-device FLOPs x pod1's 256 GPUs / decode_32k's 128 rows
+            flops_tok = rec["flops_per_device"] * 256 / 128
         tflops = self.tokens_per_s * flops_tok / 1e12
         hbm = (_param_bytes(cfg) + _kv_bytes(cfg, self.kv_seq)) / 2**30
         return (tflops, hbm)
@@ -87,6 +102,17 @@ def _kv_bytes(cfg: ArchConfig, seq: int) -> float:
     return total
 
 
+def _load_dryrun(dryrun_dir: str, arch: str, shape: str) -> Optional[dict]:
+    """The dry run's ``pod1`` record of (arch, shape), or None if there is
+    none or it holds an error or a skip."""
+    path = os.path.join(dryrun_dir, f"{arch}_{shape}_pod1.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        rec = json.load(f)
+    return rec if "error" not in rec and "skipped" not in rec else None
+
+
 def streams_from_measured(arch: str,
                           per_stream_tokens_per_s: dict[str, float],
                           *, kv_seq: int = 32_768) -> list[LLMStream]:
@@ -103,7 +129,8 @@ def streams_from_engine(arch: str, engine, *,
     return streams_from_measured(arch, engine.measured_rates(), kv_seq=kv_seq)
 
 
-def build_gpu_problem(streams: Sequence[LLMStream], catalog: Catalog) -> Problem:
+def build_gpu_problem(streams: Sequence[LLMStream], catalog: Catalog,
+                      dryrun_dir: Optional[str] = None) -> Problem:
     """Packing problem over the catalog's instance types and locations.
 
     Columnwise like the reference's ``build_tpu_problem``: the usable
@@ -122,7 +149,7 @@ def build_gpu_problem(streams: Sequence[LLMStream], catalog: Catalog) -> Problem
     req_tuples: dict[tuple[float, float], tuple] = {}
     items = []
     for s in streams:
-        req = s.requirement()
+        req = s.requirement(dryrun_dir)
         shared = req_tuples.get(req)
         if shared is None:
             ok = (np.asarray(req) <= usable).all(axis=1)      # (C,)
@@ -133,13 +160,15 @@ def build_gpu_problem(streams: Sequence[LLMStream], catalog: Catalog) -> Problem
 
 
 def plan_gpu_fleet(streams: Sequence[LLMStream],
+                   dryrun_dir: Optional[str] = None,
                    strategy: str = "packed") -> dict:
     """strategy: 'packed' (exact multiple-choice packing), 'uniform-big'
     (8-GPU instances in their cheapest region, first fit), 'per-stream'
-    (the cheapest compatible instance for each stream). Every plan is
-    checked by ``validate`` before it is returned."""
+    (the cheapest compatible instance for each stream). Requirements read
+    the dry run's records in ``dryrun_dir`` if given. Every plan is checked
+    by ``validate`` before it is returned."""
     catalog = h100_catalog()
-    problem = build_gpu_problem(streams, catalog)
+    problem = build_gpu_problem(streams, catalog, dryrun_dir)
     if strategy == "packed":
         sol, _ = solve(problem, time_budget_s=30.0)
     elif strategy == "per-stream":

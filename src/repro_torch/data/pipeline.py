@@ -1,7 +1,8 @@
 """Deterministic synthetic inputs for the four input shapes, ported from
 ``repro.data.pipeline`` (which imports jax).
 
-``make_batch`` draws from ``np.random.default_rng(seed)`` in the same order
+``input_specs`` gives meta-device tensors of each input's shape and dtype:
+the no-allocation stand-ins the dry run traces with. ``make_batch`` draws from ``np.random.default_rng(seed)`` in the same order
 as the reference, so its arrays equal the reference's value for value; they
 are returned as torch tensors on ``device``. For the audio and vision
 architectures the modality encoder is stubbed: the batch carries frame or
@@ -31,6 +32,30 @@ SHAPES: dict[str, InputShape] = {
     "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
     "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
 }
+
+
+def input_specs(cfg: ArchConfig, shape: InputShape, *,
+                dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Meta tensors standing in for every model input of this step kind:
+    ``make_batch``'s keys, shapes and dtypes, with the reference's
+    defaults (bf16 embeddings, int32 tokens, labels and positions)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda shp, dt=torch.int32: torch.empty(shp, dtype=dt,
+                                                   device="meta")
+    if shape.kind in ("train", "prefill"):
+        if cfg.frontend == "audio":
+            specs = {"frames": meta((B, S, cfg.d_model), dtype)}
+        elif cfg.frontend == "vision":
+            P = cfg.num_patches
+            specs = {"tokens": meta((B, S - P)),
+                     "patch_embeds": meta((B, P, cfg.d_model), dtype)}
+        else:
+            specs = {"tokens": meta((B, S))}
+        if shape.kind == "train":
+            specs["labels"] = meta((B, S))
+        return specs
+    # decode: one token and a position (the cache comes separately)
+    return {"token": meta((B,)), "pos": meta(())}
 
 
 def make_batch(cfg: ArchConfig, shape: InputShape, seed: int = 0, *,

@@ -36,9 +36,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers, moe, rglru, ssm
@@ -69,16 +71,23 @@ class ModelOptions:
     recomputes each block's activations in the backward instead of keeping
     them (``torch.utils.checkpoint``; the reference's ``jax.checkpoint`` of
     the scanned block body): training's memory for one more forward; it
-    changes nothing without grad. The reference's MoE sharding options
-    (``moe_local_dispatch`` and the expert shard constraint) wait for the
-    port's distributed layer."""
+    changes nothing without grad. The MoE options are the reference's:
+    ``moe_local_dispatch`` routes per sequence (``moe.apply_moe_local``),
+    ``moe_expert_shard_constraint`` pins the expert-sharded dispatch (see
+    ``moe.apply_moe``), and a ``moe_shard_map_mesh`` (a ``DeviceMesh``)
+    runs ``moe.apply_moe_shard_map`` over it with tokens sharded over
+    ``moe_shard_map_dp``."""
 
     use_kernels: bool = True
     window_override: int = 0
     ring_cache: bool = False
     remat: bool = True
+    moe_local_dispatch: bool = False
     blockwise_attention: int = 0
     gqa_expand_kv: bool = False
+    moe_expert_shard_constraint: bool = False
+    moe_shard_map_mesh: Any = None
+    moe_shard_map_dp: tuple = ("data",)
 
     def __post_init__(self):
         if self.use_kernels and self.blockwise_attention > 0:
@@ -142,12 +151,20 @@ def init_block_cache(cfg: ArchConfig, kind, batch: int, cache_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _apply_ffn(params, x: torch.Tensor, cfg: ArchConfig, ffn: str):
+def _apply_ffn(params, x: torch.Tensor, cfg: ArchConfig, ffn: str,
+               opts: ModelOptions):
     """The block's FFN after its mixer: (x + FFN(norm2(x)), MoE aux or
     None)."""
     h = layers.apply_norm(params["norm2"], x, cfg)
     if ffn == "moe":
-        out, aux = moe.apply_moe(params["ffn"], h, cfg)
+        if opts.moe_shard_map_mesh is not None:
+            out, aux = moe.apply_moe_shard_map(
+                params["ffn"], h, cfg, opts.moe_shard_map_mesh,
+                dp_axes=opts.moe_shard_map_dp)
+        else:
+            out, aux = moe.apply_moe(
+                params["ffn"], h, cfg, local_dispatch=opts.moe_local_dispatch,
+                expert_shard_constraint=opts.moe_expert_shard_constraint)
         return x + out, aux
     return x + layers.apply_mlp(params["ffn"], h, cfg), None
 
@@ -189,7 +206,7 @@ def apply_block_full(params, x: torch.Tensor, cfg: ArchConfig, kind,
     x = x + out
     if ffn is None:
         return x, None, cache
-    x, aux = _apply_ffn(params, x, cfg, ffn)
+    x, aux = _apply_ffn(params, x, cfg, ffn, opts)
     return x, aux, cache
 
 
@@ -228,7 +245,7 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
     x = x + out
     if ffn is None:
         return x, cache
-    x, _ = _apply_ffn(params, x, cfg, ffn)
+    x, _ = _apply_ffn(params, x, cfg, ffn, opts)
     return x, cache
 
 
@@ -326,6 +343,37 @@ def forward_hidden(params, batch: dict, cfg: ArchConfig, opts: ModelOptions):
 MOE_AUX_WEIGHT = 0.01
 
 
+def _logz_gold_sharded(logits: DTensor, labels: DTensor):
+    """logsumexp over the vocab and the label's logit, for logits (B, S, V)
+    on a mesh, without gathering the vocab: each rank takes its rows and
+    vocab shard (``layers.row_placements``), the shard's max, Σ exp and the
+    label's logit where it holds the label, and the shards are combined by
+    a max and two sums over the mesh dims that split the vocab. Returns
+    (logz, gold), (B, S) DTensors."""
+    mesh = logits.device_mesh
+    pl = layers.row_placements(logits, 2)
+    local = logits.redistribute(mesh, pl).to_local()
+    rows = [p if p == Shard(0) else Replicate() for p in pl]
+    part = [Partial() if p == Shard(2) else r for p, r in zip(pl, rows)]
+    V = local.shape[-1]
+    first = layers.shard_index(mesh, pl, 2)
+    with torch.no_grad():     # the shift changes no value or gradient
+        m = DTensor.from_local(local.amax(dim=-1), mesh, [
+            Partial("max") if p == Shard(2) else r
+            for p, r in zip(pl, rows)], run_check=False)
+        m = m.redistribute(mesh, rows).to_local()
+    sumexp = DTensor.from_local(torch.exp(local - m[..., None]).sum(dim=-1),
+                                mesh, part, run_check=False)
+    idx = labels.redistribute(mesh, rows).to_local() - first * V
+    mine = (idx >= 0) & (idx < V)
+    gold = torch.gather(local, -1, idx.clamp(0, V - 1)[..., None])[..., 0]
+    gold = DTensor.from_local(torch.where(mine, gold, 0.0), mesh, part,
+                              run_check=False)
+    m = DTensor.from_local(m, mesh, rows, run_check=False)
+    return m + torch.log(sumexp.redistribute(mesh, rows)), \
+        gold.redistribute(mesh, rows)
+
+
 def loss_fn(params, batch: dict, cfg: ArchConfig, opts: ModelOptions):
     """Cross-entropy LM (or masked-prediction) loss over
     ``forward_hidden``'s logits in fp32, labels < 0 ignored, averaged over
@@ -337,8 +385,11 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, opts: ModelOptions):
     labels = batch["labels"].long()
     valid = labels >= 0
     safe = torch.where(valid, labels, 0)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        logz, gold = _logz_gold_sharded(logits, safe)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * valid
     n = torch.clamp(valid.sum(), min=1)
     loss = nll.sum() / n

@@ -7,9 +7,14 @@ with the kernels on, flash attention's gradient is the CUDA backward kernel
 (``kernels.ops.FlashAttention``), and the SSD and RG-LRU kernels, which
 have no backward yet, refuse grad on the card (train those models with
 ``ModelOptions(use_kernels=False)``). The update is AdamW in place. The
-reference's ``TrainOptions.batch_axes`` (a mesh sharding constraint) waits
-for the port's distributed layer; the port trains on one device. The
 serving steps run under ``torch.no_grad()``.
+
+On a mesh the state and the batch are DTensors (``launch.sharding``) and
+the same code runs under ``implicit_replication`` (a plain tensor made
+inside the model, a mask or positions, counts as replicated). With
+``TrainOptions.batch_axes`` the microbatch split is redistributed so each
+microbatch's batch dim stays on the data axes, the reference's
+``with_sharding_constraint``.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import dataclasses
 import torch
 
 from repro_torch import checkpoint
+from repro_torch.launch.sharding import constrain
 from repro_torch.models import model as M
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -31,6 +37,10 @@ class TrainOptions:
     opt: AdamWConfig = AdamWConfig()
     schedule_total: int = 10_000
     schedule_warmup: int = 100
+    # mesh axes carrying the batch dim: when set, the microbatch split of a
+    # DTensor batch keeps each microbatch's batch dim on them (otherwise
+    # the (n, B/n, ...) reshape may leave microbatches replicated)
+    batch_axes: tuple = ()
 
 
 def init_train_state(cfg: ArchConfig, generator: torch.Generator, dtype,
@@ -41,16 +51,23 @@ def init_train_state(cfg: ArchConfig, generator: torch.Generator, dtype,
     return {"params": params, "opt": adamw_init(params, topts.opt)}
 
 
-def _split_microbatches(batch: dict, n: int) -> dict:
+def _split_microbatches(batch: dict, n: int, batch_axes=()) -> dict:
     """(B, ...) -> (n, B/n, ...) for every tensor with a batch dimension; a
-    0-d tensor is repeated n times."""
+    0-d tensor is repeated n times. With ``batch_axes``, a DTensor result is
+    redistributed so the per-microbatch batch dim (dim 1) carries those
+    mesh axes and the microbatch dim (dim 0) is replicated; a plain tensor
+    is unchanged."""
     def split(x):
         if x.dim() == 0:
             return x.expand(n)
         B = x.shape[0]
         if B % n:
             raise ValueError(f"batch {B} not divisible by {n} microbatches")
-        return x.reshape(n, B // n, *x.shape[1:])
+        out = x.reshape(n, B // n, *x.shape[1:])
+        if batch_axes:
+            out = constrain(out, (None, tuple(batch_axes),
+                                  *([None] * (out.dim() - 2))))
+        return out
     return {k: split(v) for k, v in batch.items()}
 
 
@@ -76,10 +93,11 @@ def compute_grads(params, batch: dict, cfg: ArchConfig,
     if topts.microbatches <= 1:
         loss, metrics, grads = grad_of(batch)
     else:
-        mb = _split_microbatches(batch, topts.microbatches)
-        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in flat]
-        loss = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+        mb = _split_microbatches(batch, topts.microbatches,
+                                 topts.batch_axes)
+        # zeros_like keeps a DTensor parameter's placements
+        grads = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
+        loss = 0.0
         for i in range(topts.microbatches):
             l, _, gs = grad_of({k: v[i] for k, v in mb.items()})
             for acc, g in zip(grads, gs):
