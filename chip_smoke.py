@@ -225,10 +225,25 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    then ``plan_gpu_fleet`` over phase 6's measured olmo-1b rates without
    and with the records (the per-token FLOPs, $/hour and instances of
    each). A card line, then one ``{"dist": ...}`` line.
-14. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
-   its main paths, served, trained, the observability loop's and the
-   meshed training's; ``launches_by_path`` also holds the phase-5 paths),
-   then the last line ``{"ok": true, "device": {...}}``.
+14. The paper's loop through both launchers, with ``jax`` and ``repro``
+   absent: (a) ``python -m repro_torch.launch.dryrun`` for olmo-1b at
+   ``decode_32k`` on ``pod1`` into a temporary directory D, in a
+   subprocess with a timeout; ``LLMStream.requirement(D)`` must carry the
+   record's per-token FLOPs (per-device FLOPs × 256 / 128), not the closed
+   form's. (b) ``serve("olmo-1b", reduced=False, dryrun_dir=D)`` on the
+   card (phase 6's traffic), every launch count set to 0 just before and
+   read just after: 24 frames, flash 16 a prefill × 25 prefills; the
+   report's three plans must equal ``plan_gpu_fleet`` of its measured
+   rates with D; the model freed. (c) ``python -m repro_torch.launch.serve
+   --arch olmo-1b --full --dryrun-dir D`` on the card in a subprocess with
+   a timeout: 24 frames and its plans held the same way. Each plan's
+   $/hour and instances printed with the closed form's beside them; a
+   card line, then one ``{"loop": ...}`` line.
+15. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
+   its main paths, served, trained, the observability loop's, the
+   meshed training's and phase 14's serve; ``launches_by_path`` also holds
+   the phase-5 paths), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 TF32 is off throughout, so fp32 matrix products are full fp32.
 """
@@ -612,6 +627,13 @@ DIST_AUX_TOL = 1e-6
 DIST_DRYRUN = (("olmo-1b", "decode_32k"), ("qwen3-moe-30b-a3b", "decode_32k"),
                ("olmo-1b", "train_4k"))
 DIST_DRYRUN_TIMEOUT_S = 300
+# phase 14, the paper's loop through both launchers: the dry run's record,
+# then full-width olmo-1b served with it in this process and from the
+# command line in another
+LOOP_ARCH = "olmo-1b"
+LOOP_PATH = "olmo-1b serve --dryrun-dir (phase 14)"
+LOOP_SERVE_TIMEOUT_S = 600
+STRATEGIES = ("per-stream", "uniform-big", "packed")
 
 
 def fail(msg: str) -> None:
@@ -1565,16 +1587,16 @@ def _counting_engine():
     return CountingEngine
 
 
-def serve_path(torch, arch: str, wrappers: dict) -> tuple:
+def serve_path(torch, arch: str, wrappers: dict, dryrun_dir=None) -> tuple:
     """Phase 6 for one model: serve it at full width with every launch
     count set to 0 just before and read just after, check each count
     against the prefills and decode steps the engine ran (warmup included),
     and plan the H100 fleet again from the measured rates. An fp32 model
-    goes through ``serve()``; a bf16 one (``BF16_ARCHS``) through an engine
-    built here on bf16 weights and ``serve``'s second half,
-    ``measure_and_plan``. Returns the counts and, for
-    ``SIM_CALIBRATED_ARCH``, the served engine's ``ServiceCalibration``
-    (phase 11's cap; None for the other models)."""
+    goes through ``serve()`` (with ``dryrun_dir``, phase 14); a bf16 one
+    (``BF16_ARCHS``) through an engine built here on bf16 weights and
+    ``serve``'s second half, ``measure_and_plan``. Returns the counts, for
+    ``SIM_CALIBRATED_ARCH`` the served engine's ``ServiceCalibration``
+    (phase 11's cap; None for the other models), and the report."""
     from repro_torch.core.gpu_catalog import (plan_gpu_fleet,
                                               streams_from_measured)
     from repro_torch.launch import serve as serve_mod
@@ -1599,7 +1621,8 @@ def serve_path(torch, arch: str, wrappers: dict) -> tuple:
             del eng
         else:
             report = serve_mod.serve(arch, reduced=False, n_streams=4, fps=2,
-                                     seconds=3, engine="continuous")
+                                     seconds=3, dryrun_dir=dryrun_dir,
+                                     engine="continuous")
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in wrappers.items()}
         wall = time.perf_counter() - t0
@@ -1644,7 +1667,7 @@ def serve_path(torch, arch: str, wrappers: dict) -> tuple:
         {s: (p["hourly_cost"], p["instances"]) for s, p in plans.items()}))
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, calibration
+    return counts, calibration, report
 
 
 def profile_serving(torch, arch: str, wrappers: dict) -> dict:
@@ -3283,6 +3306,124 @@ def check_dist(torch, wrappers: dict, calibration) -> tuple:
     return report, counts
 
 
+def _run_module(args: list, timeout_s: int) -> str:
+    """``python -m <args>`` in a subprocess with the port on its path, its
+    output returned; fatal on a non-zero exit or no end in ``timeout_s``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.Popen([sys.executable, "-m", *args], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{args[0]}: no end in {timeout_s} s")
+    if proc.returncode != 0:
+        fail(f"{' '.join(args)} exited {proc.returncode}: {err[-2000:]}")
+    return out
+
+
+def _loop_plans(what: str, report: dict, dryrun_dir: str) -> dict:
+    """The report's plans against ``plan_gpu_fleet`` of its own measured
+    rates with the dry run's records, for each strategy (fatal if one
+    differs); returns both plans' $/hour and instances, the closed form's
+    beside them."""
+    from repro_torch.core.gpu_catalog import (plan_gpu_fleet,
+                                              streams_from_measured)
+    streams = streams_from_measured(LOOP_ARCH,
+                                    report["measured_stream_tokens_per_s"])
+    plans = {label: {s: plan_gpu_fleet(streams, d, strategy=s)
+                     for s in STRATEGIES}
+             for label, d in (("dry run", dryrun_dir), ("closed form", None))}
+    if json.loads(json.dumps(report["fleet_plans"])) != json.loads(
+            json.dumps(plans["dry run"])):
+        fail(f"{what}: fleet_plans {report['fleet_plans']} are not "
+             f"plan_gpu_fleet(..., dryrun_dir) {plans['dry run']}")
+    brief = {label: {s: [p["hourly_cost"], p["instances"]]
+                     for s, p in ps.items()} for label, ps in plans.items()}
+    print(f"{what} plans: {json.dumps(brief)}", flush=True)
+    return brief
+
+
+def check_loop(torch, wrappers: dict) -> tuple:
+    """Phase 14, the paper's profile-then-pack loop through the launchers a
+    user runs, with ``jax`` and ``repro`` absent: (a) ``python -m
+    repro_torch.launch.dryrun`` for ``LOOP_ARCH`` at ``decode_32k`` on
+    ``pod1`` into a directory of its own, the requirement's per-token FLOPs
+    the record's; (b) ``serve(LOOP_ARCH, reduced=False, dryrun_dir=...)``
+    through ``serve_path`` (counted and checked as phase 6; the model
+    freed), its plans against their recomputation from the record; (c) ``python
+    -m repro_torch.launch.serve --arch LOOP_ARCH --full --dryrun-dir ...``
+    on the card, its JSON held the same way. Returns ({"loop": report}'s
+    value, (b)'s counts)."""
+    import tempfile
+    from repro_torch.core.gpu_catalog import LLMStream
+    from repro_torch.models.config import get_config
+
+    _no_reference_loaded("paper's loop")
+    t_phase = time.perf_counter()
+    report = {}
+    cfg = get_config(LOOP_ARCH)
+    with tempfile.TemporaryDirectory() as d:
+        # (a) the dry run's record
+        t0 = time.perf_counter()
+        _run_module(["repro_torch.launch.dryrun", "--arch", LOOP_ARCH,
+                     "--shape", "decode_32k", "--mesh", "pod1", "--out", d],
+                    DIST_DRYRUN_TIMEOUT_S)
+        with open(os.path.join(d, f"{LOOP_ARCH}_decode_32k_pod1.json")) as f:
+            rec = json.load(f)
+        if not rec.get("flops_per_device", 0) > 0:
+            fail(f"phase 14: the dry run's record has no FLOPs: {rec}")
+        traced = rec["flops_per_device"] * 256 / 128
+        closed = 2.0 * cfg.active_param_count()
+        got = LLMStream("s", LOOP_ARCH, 1.0).requirement(d)[0] * 1e12
+        if abs(got - traced) > 1e-9 * traced or not traced > closed:
+            fail(f"phase 14: requirement({d}) gives {got:.6g} FLOP a token;"
+                 f" the record {traced:.6g}, the closed form {closed:.6g}")
+        report["dryrun"] = {
+            "flops_per_device": rec["flops_per_device"],
+            "trace_s": rec["trace_s"],
+            "flops_per_token": {"dry run": traced, "closed form": closed},
+            "s": time.perf_counter() - t0}
+        print(f"phase 14 dry run: {traced:.6g} FLOP a token from the record"
+              f", {closed:.6g} closed form; {rec['trace_s']} s of tracing",
+              flush=True)
+
+        # (b) serve(..., dryrun_dir=d) in this process, counted and held
+        # as phase 6 holds it
+        t0 = time.perf_counter()
+        counts, _, out = serve_path(torch, LOOP_ARCH, wrappers, dryrun_dir=d)
+        if out["frames_served"] != 24:
+            fail(f"phase 14: {out['frames_served']} frames served; want 24")
+        report["serve"] = {
+            "frames_served": out["frames_served"],
+            "tokens_per_s": out["tokens_per_s"],
+            "measured_stream_tokens_per_s":
+                out["measured_stream_tokens_per_s"],
+            "launches": counts, "s": time.perf_counter() - t0,
+            "plans": _loop_plans("phase 14 serve(dryrun_dir=)", out, d)}
+
+        # (c) the command line, in a process of its own on the card
+        t0 = time.perf_counter()
+        cli = json.loads(_run_module(
+            ["repro_torch.launch.serve", "--arch", LOOP_ARCH, "--full",
+             "--dryrun-dir", d], LOOP_SERVE_TIMEOUT_S))
+        if cli["frames_served"] != 24:
+            fail(f"phase 14: the command line served {cli['frames_served']}"
+                 " frames; want 24")
+        report["cli"] = {
+            "frames_served": cli["frames_served"],
+            "tokens_per_s": cli["tokens_per_s"],
+            "measured_stream_tokens_per_s":
+                cli["measured_stream_tokens_per_s"],
+            "s": time.perf_counter() - t0,
+            "plans": _loop_plans("phase 14 --dryrun-dir", cli, d)}
+    report["s"] = time.perf_counter() - t_phase
+    print(f"phase 14: {report['s']:.1f} s", flush=True)
+    return report, counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3385,7 +3526,7 @@ def main() -> None:
     records["flash_attention"]["launches_by_path"].update(model_paths)
     calibration = None
     for arch in SERVED:
-        counts, calib = serve_path(torch, arch, wrappers)
+        counts, calib, _ = serve_path(torch, arch, wrappers)
         if calib is not None:
             calibration = calib
         for name, n in counts.items():
@@ -3434,6 +3575,13 @@ def main() -> None:
             records[name]["launches"] += n
             if n:
                 records[name]["launches_by_path"][path] = n
+    # 14) the paper's loop through both launchers: the dry run, then serve
+    # with its record (a main path whose launches join the sum) and plan
+    loop_report, counts = check_loop(torch, wrappers)
+    for name, n in counts.items():
+        records[name]["launches"] += n
+        if n:
+            records[name]["launches_by_path"][LOOP_PATH] = n
     print(json.dumps({"vgg": vgg_report}))
     print(card, flush=True)
     print(json.dumps({"manager": manager_report}))
@@ -3443,6 +3591,8 @@ def main() -> None:
     print(json.dumps({"obs": obs_report}))
     print(card, flush=True)
     print(json.dumps({"dist": dist_report}))
+    print(card, flush=True)
+    print(json.dumps({"loop": loop_report}))
     print(card, flush=True)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

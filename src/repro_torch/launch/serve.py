@@ -8,7 +8,13 @@ packed — and reports cost, throughput and SLO attainment. The port of
 ``serve`` draws fp32 weights, as the reference does; ``measure_and_plan``
 is its second half, for an engine built by the caller (bf16 weights, say).
 
-    python -m repro_torch.launch.serve --device cuda [--full]
+The planner reads each stream's per-token FLOPs from the dry run's
+``{arch}_decode_32k_pod1.json`` record in ``dryrun_dir`` (``--dryrun-dir``),
+as ``launch.dryrun`` writes it; without a directory, or without a record
+there, it uses the closed form, 2 x the active parameters:
+
+    python -m repro_torch.launch.dryrun --arch olmo-1b --shape decode_32k --mesh pod1
+    python -m repro_torch.launch.serve --device cuda --full --dryrun-dir experiments/dryrun_torch
 """
 from __future__ import annotations
 
@@ -54,7 +60,8 @@ def _device_bytes(device) -> int:
 
 
 def serve(arch: str = "olmo-1b", *, n_streams: int = 4, fps: float = 2.0,
-          seconds: int = 3, reduced: bool = True, engine: str = "continuous",
+          seconds: int = 3, reduced: bool = True,
+          dryrun_dir: str | None = None, engine: str = "continuous",
           device="cuda") -> dict:
     cfg = get_config(arch, reduced=reduced)
     if cfg.frontend != "none" or cfg.is_encoder:
@@ -80,15 +87,16 @@ def serve(arch: str = "olmo-1b", *, n_streams: int = 4, fps: float = 2.0,
     else:
         raise ValueError(engine)
     return measure_and_plan(eng, n_streams=n_streams, fps=fps,
-                            seconds=seconds)
+                            seconds=seconds, dryrun_dir=dryrun_dir)
 
 
 def measure_and_plan(eng, *, n_streams: int = 4, fps: float = 2.0,
-                     seconds: int = 3) -> dict:
+                     seconds: int = 3, dryrun_dir: str | None = None) -> dict:
     """Warm ``eng`` (either engine), serve ``n_streams`` simulated streams
     at ``fps`` for ``seconds`` ticks, and plan the H100 fleet three ways
     from the measured per-stream rates of its architecture
-    (``eng.cfg.name``). Returns ``serve``'s report."""
+    (``eng.cfg.name``), with the dry run's records in ``dryrun_dir`` if
+    given. Returns ``serve``'s report."""
     arch = eng.cfg.name
     # 1) serve the streams and measure throughput
     _warmup(eng, prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS)
@@ -105,7 +113,7 @@ def measure_and_plan(eng, *, n_streams: int = 4, fps: float = 2.0,
         measured.setdefault(f"cam-{i}", fps * NEW_TOKENS)
 
     streams = streams_from_measured(arch, measured)
-    plans = {s: plan_gpu_fleet(streams, strategy=s)
+    plans = {s: plan_gpu_fleet(streams, dryrun_dir, strategy=s)
              for s in ("per-stream", "uniform-big", "packed")}
     packed, per_stream = plans["packed"], plans["per-stream"]
     savings = 1.0 - packed["hourly_cost"] / per_stream["hourly_cost"]
@@ -135,6 +143,7 @@ def main() -> None:
     ap.add_argument("--seconds", type=int, default=3)
     ap.add_argument("--engine", choices=("continuous", "static"),
                     default="continuous")
+    ap.add_argument("--dryrun-dir", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full", action="store_true",
                     help="the architecture's full widths and depth (default: "
@@ -142,7 +151,8 @@ def main() -> None:
     args = ap.parse_args()
     out = serve(args.arch, n_streams=args.streams, fps=args.fps,
                 seconds=args.seconds, reduced=not args.full,
-                engine=args.engine, device=args.device)
+                dryrun_dir=args.dryrun_dir, engine=args.engine,
+                device=args.device)
     print(json.dumps(out, indent=2))
 
 

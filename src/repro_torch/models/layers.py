@@ -257,8 +257,9 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_full(params, x: torch.Tensor, cfg: ArchConfig, *,
-                   window: int = 0, use_flash: bool = False,
-                   blockwise: int = 0, expand_kv: bool = False):
+                   window: int = 0, positions: torch.Tensor | None = None,
+                   use_flash: bool = False, blockwise: int = 0,
+                   expand_kv: bool = False):
     """Full-sequence attention (prefill, or an encoder's forward). Returns
     (out, (k, v)).
 
@@ -266,8 +267,10 @@ def attention_full(params, x: torch.Tensor, cfg: ArchConfig, *,
     the hand-written CUDA kernel for CUDA tensors, its plain PyTorch
     version for CPU tensors. Otherwise ``blockwise > 0`` runs
     ``attention_blockwise`` over KV blocks of that size, and else the
-    scores are formed by einsum as in the reference's jnp path. Queries sit
-    at positions 0..S-1; ``window > 0`` keeps, for query s, the keys
+    scores are formed by einsum as in the reference's jnp path.
+    ``positions``, (1, S) or (B, S), are the RoPE positions of q and k
+    (default 0..S-1); as in the reference they feed RoPE only, and the
+    masks stay in index space: ``window > 0`` keeps, for query s, the keys
     t > s - window; ``cfg.causal`` False (an encoder) masks nothing and
     applies no RoPE. ``expand_kv`` repeats each KV head onto its
     H / K query heads first (``repeat_interleave``, as the reference's
@@ -275,7 +278,8 @@ def attention_full(params, x: torch.Tensor, cfg: ArchConfig, *,
     expanded ones, as in the reference."""
     B, S, D = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    positions = torch.arange(S, device=x.device)[None, :]
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None, :]
     q = _split_heads(linear(x, params["wq"]), H, hd)
     k = _split_heads(linear(x, params["wk"]), K, hd)
     v = _split_heads(linear(x, params["wv"]), K, hd)

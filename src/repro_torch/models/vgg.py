@@ -124,6 +124,22 @@ def apply_convnet(params: dict, x: torch.Tensor,
     return x
 
 
+def init_vgg16(generator: torch.Generator, **kw) -> dict:
+    return init_convnet(VGG16_LAYOUT, generator, **kw)
+
+
+def apply_vgg16(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return apply_convnet(params, x, VGG16_LAYOUT)
+
+
+def init_zf(generator: torch.Generator, **kw) -> dict:
+    return init_convnet(ZF_LAYOUT, generator, **kw)
+
+
+def apply_zf(params: dict, x: torch.Tensor) -> torch.Tensor:
+    return apply_convnet(params, x, ZF_LAYOUT)
+
+
 def flops_per_frame(layout: Sequence, input_hw: int, in_channels: int = 3,
                     fc_width: int = 512, num_classes: int = 1000) -> int:
     """Analytic conv + FC FLOPs of one frame (2 per multiply-add), as the
