@@ -32,11 +32,12 @@ either version; and, where the version has it, the fused
 backward at olmo-1b's training shape (8, 256, 16, 128) causal, in fp32 and
 bf16, from the forward's output and lse (its device time is every device
 kernel named ``flash_attention_bwd``: Δ, dkdv and dq). ``--only KIND ...``
-measures only those kinds (flash, flash_bwd, ssd, rglru, and train, which
-only ``--only`` asks for: full-width olmo-1b, fp32, batch 8 × 256, through
-that version's ``models.steps.train_step`` with its kernels, one step to
-warm up and then ``TRAIN_STEPS`` steps on a host clock that ends in a
-synchronise).
+measures only those kinds (flash, flash_bwd, ssd, rglru, and two that
+only ``--only`` asks for: train, full-width olmo-1b, fp32, batch 8 × 256,
+through that version's ``models.steps.train_step`` with its kernels, one
+step to warm up and then ``TRAIN_STEPS`` steps on a host clock that ends
+in a synchronise; and flash_items, the flash forward at 256 causal queries
+as the heads, and so the work items, grow).
 
 Needs a CUDA GPU; imports neither jax nor the JAX package.
 """
@@ -54,10 +55,24 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (its timing helpers; it imports no kernel)
 
-# B, S, H, hd, K, T, window (causal)
-FLASH_SHAPES = [(1, 32, 16, 128, 16, 32, 0), (1, 32, 16, 256, 1, 32, 2048),
-                (1, 1024, 16, 128, 16, 1024, 0),
-                (1, 1024, 16, 256, 1, 1024, 256)]
+# B, S, H, hd, K, T, causal, window, lse: the served prefills of olmo-1b
+# and recurrentgemma-9b, two 1024-token shapes, olmo-1b's training forward
+# (with the log-sum-exp), hubert-xlarge's encoder, internvl2-1b's prefill,
+# yi-9b's 300-token prefill with a window of 128 and a small ragged call
+FLASH_SHAPES = [(1, 32, 16, 128, 16, 32, True, 0, False),
+                (1, 32, 16, 256, 1, 32, True, 2048, False),
+                (1, 1024, 16, 128, 16, 1024, True, 0, False),
+                (1, 1024, 16, 256, 1, 1024, True, 256, False),
+                (8, 256, 16, 128, 16, 256, True, 0, True),
+                (1, 500, 16, 80, 16, 500, False, 0, False),
+                (1, 288, 14, 64, 2, 288, True, 0, False),
+                (1, 300, 32, 128, 4, 300, True, 128, False),
+                (2, 100, 4, 64, 2, 100, True, 0, False)]
+# the flash forward as a call's heads grow, causal, 256 queries: 8·H items
+# of 32 rows, where the long-query design meets the 8-row one (--only
+# flash_items)
+FLASH_ITEM_SHAPES = [(1, 256, H, hd, H, 256, True, 0, False)
+                     for hd in (64, 128) for H in (1, 2, 4, 6, 8, 12, 16)]
 # b, s, h, p, g, n, chunk
 SSD_SHAPES = [(1, 128, 80, 64, 1, 128, 128), (1, 2048, 16, 64, 2, 128, 128)]
 # B, S, W (RG-LRU scan); B, S, W, with an initial state (fused form)
@@ -66,6 +81,7 @@ GATED_SHAPES = [(1, 32, 4096, False), (8, 1, 4096, True)]
 # B, S, H, hd, K (causal, T == S): olmo-1b's training shape
 FLASH_BWD_SHAPES = [(8, 256, 16, 128, 16)]
 KINDS = ("flash", "flash_bwd", "ssd", "rglru")
+EXTRA_KINDS = ("train", "flash_items")     # only when --only names them
 TRAIN_STEPS = 6
 
 
@@ -125,13 +141,19 @@ def measure(src: str, label: str, drain: str = "",
                                                  causal=True)
             out["flash_bwd"][f"{(B, S, H, hd, K)} {str(dtype)[6:]}"] = \
                 _times(torch, run, "flash_attention_bwd")
-    for B, S, H, hd, K, T, window in (FLASH_SHAPES if "flash" in kinds
-                                      else ()):
+    flash_shapes = [(kind, shape) for kind, shapes in (
+        ("flash", FLASH_SHAPES), ("flash_items", FLASH_ITEM_SHAPES))
+        if kind in kinds for shape in shapes]
+    for kind, shape in flash_shapes:
+        B, S, H, hd, K, T, causal, window, with_lse = shape
         q = torch.randn((B, S, H, hd), generator=gen, device="cuda")
         k = torch.randn((B, T, K, hd), generator=gen, device="cuda")
         v = torch.randn((B, T, K, hd), generator=gen, device="cuda")
-        run = lambda: fa.flash_attention(q, k, v, causal=True, window=window)
-        out["flash"][str((B, S, H, hd, K, T, window))] = {
+        lse = (torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+               if with_lse else None)
+        run = lambda: fa.flash_attention(q, k, v, causal=causal,
+                                         window=window, lse=lse)
+        out[kind][str(shape)] = {
             "device_ms": chip_smoke.device_ms(torch, run,
                                               "flash_attention_kernel")[0],
             "back_to_back_ms": chip_smoke.cuda_ms(torch, run),
@@ -219,9 +241,10 @@ def main() -> None:
     ap.add_argument("--ab", metavar="OTHER_SRC",
                     help="A/B/B/A: OTHER_SRC, this checkout, this checkout, "
                          "OTHER_SRC, each in a process of its own")
-    ap.add_argument("--only", nargs="+", choices=KINDS + ("train",),
+    ap.add_argument("--only", nargs="+", choices=KINDS + EXTRA_KINDS,
                     default=list(KINDS),
-                    help="measure only these kinds (train: only if named)")
+                    help="measure only these kinds (train and flash_items: "
+                         "only if named)")
     args = ap.parse_args()
     if args.src:
         print(json.dumps(measure(args.src, args.label or args.src,

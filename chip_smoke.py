@@ -22,9 +22,19 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    8-way, nemotron-4-15b's 6-way and internvl2-1b's 7-way GQA) and head_dim
    80: hubert-xlarge's non-causal (1, 500, 16, 80, 16, 500), whose last KV
    tile holds 20 keys, a whole-tile encoder shape, a ragged causal GQA one
-   and one with T > S and a window. At each model path's shape (olmo-1b,
-   recurrentgemma-9b, yi-9b, nemotron-4-15b, internvl2-1b and
-   hubert-xlarge), time the kernel issued back to back
+   and one with T > S and a window; then olmo-1b's training shape (8, 256,
+   16, 128) causal with the log-sum-exp, the output within fp32 1e-4 and
+   the lse within ``LSE_TOL``. The fp32 shapes of at least 64 query rows
+   and 96 items of 32 rows run the long-query design
+   (``flash_attention_kernel_f32_rows``; two more T < S shapes, one with
+   64-row items, for its blind rows), the smaller ones and bf16 the others
+   (``fa.design`` names each, printed beside its error). Each forward
+   instantiation's registers and spills from nvcc's report (a spill fails)
+   and its shared memory against the wrapper's ``smem_bytes`` /
+   ``smem_bytes_rows``. At each model path's
+   shape (olmo-1b, recurrentgemma-9b, yi-9b, nemotron-4-15b, internvl2-1b,
+   hubert-xlarge and olmo-1b's training forward with lse), time the kernel
+   issued back to back
    (CUDA events), its device time alone (profiler), its host enqueue time
    (host clock, no synchronise), the plain version and
    ``scaled_dot_product_attention`` (a yardstick only; the port never calls
@@ -68,7 +78,9 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    masks in prefill and decode: the kernels with a ring cache of 128 slots
    against the plain path over the full cache with the window mask.
    hubert-xlarge's ``forward_hidden`` over (1, 500, 1280) frames, the
-   hidden states within 1e-3 (and its MoE aux 0). qwen3-moe-30b-a3b at
+   hidden states within 1e-3 (and its MoE aux 0), and one traced forward
+   whose 48 flash kernels must all be the long-query design.
+   qwen3-moe-30b-a3b at
    full width cut to 8 layers, so that it fits in fp32: kernels against
    plain within 1e-3, identical greedy tokens; the same model in bf16,
    each path against the fp32 logits, and the routed tokens whose experts
@@ -104,7 +116,9 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    wall time with and without tracing, the device's busy time and idle
    share, and device time by kernel (each port kernel's per wrapper call,
    summed over the device kernels it launches; the fused RG-LRU kernel is
-   named ``rglru_gated_scan_kernel`` in the trace). For the MoE model, a
+   named ``rglru_gated_scan_kernel`` in the trace; every flash kernel of a
+   served drain must be the 32-token prefill's design, never the
+   long-query one). For the MoE model, a
    second traced drain with each step of ``models.moe`` (routing,
    dispatch, the experts, combine) in a ``record_function`` range: the
    device time under each step and the expert ``bmm``s' part. The idle
@@ -140,7 +154,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    ``use_kernels=False`` from the same weights and batches (loss and
    grad_norm by step); step time, tokens/s and peak memory beside the
    18.8 GB of state; one step profiled (busy, idle share, device time by
-   kernel group); the train state through the port's checkpoint and back,
+   kernel group; its 32 flash forwards must all be the long-query
+   design); the train state through the port's checkpoint and back,
    equal. (c) ``ops.ssd_scan``, ``ops.rglru_scan`` and
    ``ops.rglru_gated_scan`` refuse CUDA inputs that require grad.
 10. The paper's resource manager (``repro_torch.core``, host only), with
@@ -285,6 +300,8 @@ YI_FLASH_SHAPE = (1, 32, 32, 128, 4, 32, True, 0)     # yi-9b prefill, 8-way GQA
 NEMOTRON_FLASH_SHAPE = (1, 32, 48, 128, 8, 32, True, 0)   # 6-way GQA
 INTERNVL_FLASH_SHAPE = (1, 288, 14, 64, 2, 288, True, 0)  # 256 patches + 32
 HUBERT_FLASH_SHAPE = (1, 500, 16, 80, 16, 500, False, 0)  # hubert-xlarge, hd 80
+# olmo-1b's training forward (batch 8 × 256), timed and held with its lse
+TRAIN_FLASH_SHAPE = (8, 256, 16, 128, 16, 256, True, 0)
 SHAPES = [
     (2, 128, 4, 64, 2, 128, True, 0),      # tests/test_kernels.py grid
     (1, 256, 4, 64, 1, 256, True, 64),
@@ -295,6 +312,8 @@ SHAPES = [
     (2, 100, 4, 64, 2, 100, True, 0),      # ragged
     (1, 37, 8, 128, 2, 90, True, 24),      # ragged, T > S, window
     (1, 64, 4, 64, 4, 48, True, 0),        # T < S: 16 rows see no key
+    (2, 64, 32, 64, 4, 48, True, 0),       # T < S, long-query design
+    (2, 160, 16, 64, 4, 100, True, 0),     # T < S: 60 blind rows, 2 KV tiles
     RG_FLASH_SHAPE,                        # hd 256, MQA, window 2048
     (1, 300, 16, 256, 1, 300, True, 128),  # hd 256, ragged, the window bites
     (2, 40, 4, 256, 1, 100, True, 48),     # hd 256, T > S with a window
@@ -313,7 +332,8 @@ SHAPES = [
 FLASH_TIMED = {"olmo-1b": MAIN_SHAPE, "hd256": RG_FLASH_SHAPE,
                "yi-9b": YI_FLASH_SHAPE, "nemotron-4-15b": NEMOTRON_FLASH_SHAPE,
                "internvl2-1b": INTERNVL_FLASH_SHAPE,
-               "hubert-xlarge hd80": HUBERT_FLASH_SHAPE}
+               "hubert-xlarge hd80": HUBERT_FLASH_SHAPE,
+               "olmo-1b train, with lse": TRAIN_FLASH_SHAPE}
 # the MoE models' prefill shapes, timed in bf16, the dtype they serve in:
 # qwen3-moe-30b-a3b's is yi-9b's (8-way GQA), moonshot-v1-16b-a3b's
 # olmo-1b's (MHA); both are in SHAPES, so held in fp32 and bf16 above
@@ -792,6 +812,7 @@ def _compare(name: str, shape, dtype, got, want, tol: float) -> float:
 
 def check_flash(torch, fa, ref) -> dict:
     """Phase 3. Returns the kernel's record for the final JSON line."""
+    ptxas = fwd_ptxas(torch)
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
@@ -804,16 +825,35 @@ def check_flash(torch, fa, ref) -> dict:
             want = ref.flash_attention_ref(q, k, v, causal=causal,
                                            window=window)
             torch.cuda.synchronize()
-            worst[(shape, str(dtype))] = _compare("flash_attention", shape,
-                                                  dtype, got, want, tol)
+            worst[(shape, str(dtype))] = _compare(
+                f"flash_attention {fa.design(B, S, H, dtype)}", shape, dtype,
+                got, want, tol)
             if T < S and dtype == torch.float32:
-                blind = v.mean(dim=1, keepdim=True).expand(-1, S - T, -1, -1)
+                # query head h reads KV head h // (H / K)
+                blind = v.mean(dim=1, keepdim=True).repeat_interleave(
+                    H // K, dim=2).expand(-1, S - T, -1, -1)
                 blind_err = (got[:, :S - T] - blind).abs().max().item()
                 if blind_err > FP32_TOL:
                     fail(f"T < S rows are not mean(v): {blind_err:.3e}")
+    # the training forward, with the log-sum-exp the backward reads
+    B, S, H, hd, K, T, causal, window = TRAIN_FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda")
+               for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                                 window=window)
+    torch.cuda.synchronize()
+    worst[(TRAIN_FLASH_SHAPE, "torch.float32")] = _compare(
+        f"flash_attention {fa.design(B, S, H, q.dtype)}", TRAIN_FLASH_SHAPE,
+        q.dtype, got, want, FP32_TOL)
+    lse_err = _compare("flash_attention lse", TRAIN_FLASH_SHAPE, q.dtype,
+                       lse, want_lse, LSE_TOL)
 
     # time at each path's shape, in the dtype the path runs in
-    times = {shape: time_flash(torch, fa, ref, shape)
+    times = {shape: time_flash(torch, fa, ref, shape,
+                               lse=shape == TRAIN_FLASH_SHAPE)
              for shape in FLASH_TIMED.values()}
     times_bf16 = {key: time_flash(torch, fa, ref, shape, torch.bfloat16)
                   for key, shape in FLASH_TIMED_BF16.items()}
@@ -823,38 +863,49 @@ def check_flash(torch, fa, ref) -> dict:
            "shape": list(MAIN_SHAPE[:6]), "dtype": "float32",
            "max_abs_err": worst[(MAIN_SHAPE, "torch.float32")],
            "max_abs_err_all_shapes": max(worst.values()),
-           **times[MAIN_SHAPE]}
+           "design": fa.design(*MAIN_SHAPE[:3], torch.float32),
+           **times[MAIN_SHAPE], "ptxas": ptxas}
     for key, shape in FLASH_TIMED.items():
         if shape != MAIN_SHAPE:
             rec[key] = {"shape": list(shape[:6]), "causal": shape[6],
                         "window": shape[7], "dtype": "float32",
+                        "design": fa.design(*shape[:3], torch.float32),
                         "max_abs_err": worst[(shape, "torch.float32")],
-                        "max_abs_err_bf16": worst[(shape, "torch.bfloat16")],
                         **times[shape]}
+            if (shape, "torch.bfloat16") in worst:
+                rec[key]["max_abs_err_bf16"] = worst[(shape,
+                                                      "torch.bfloat16")]
+    rec["olmo-1b train, with lse"]["lse_max_abs_err"] = lse_err
     for key, shape in FLASH_TIMED_BF16.items():
         rec[key] = {"shape": list(shape[:6]), "causal": shape[6],
                     "window": shape[7], "dtype": "bfloat16",
+                    "design": fa.design(*shape[:3], torch.bfloat16),
                     "max_abs_err": worst[(shape, "torch.bfloat16")],
                     **times_bf16[key]}
     return rec
 
 
-def time_flash(torch, fa, ref, shape, dtype=None) -> dict:
+def time_flash(torch, fa, ref, shape, dtype=None, lse: bool = False) -> dict:
     """The kernel, its plain version and ``scaled_dot_product_attention`` (a
     yardstick only, with each KV head expanded onto its query heads) at one
     shape whose window, if any, is >= T, in ``dtype`` (fp32 by default), by
-    CUDA events."""
+    CUDA events; with ``lse`` the kernel also writes the log-sum-exp (as in
+    training) and the plain version is ``flash_attention_fwd_ref``."""
     B, S, H, hd, K, T, causal, window = shape
     dtype = dtype or torch.float32
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
                for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
-    run = lambda: fa.flash_attention(q, k, v, causal=causal, window=window)
+    lse_out = (torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+               if lse else None)
+    run = lambda: fa.flash_attention(q, k, v, causal=causal, window=window,
+                                     lse=lse_out)
+    plain = ref.flash_attention_fwd_ref if lse else ref.flash_attention_ref
     ms = cuda_ms(torch, run)
     host_ms = host_enqueue_ms(torch, run)
     dev_ms, _ = device_ms(torch, run, "flash_attention_kernel")
-    plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(
-        q, k, v, causal=causal, window=window))
+    plain_ms = cuda_ms(torch, lambda: plain(q, k, v, causal=causal,
+                                            window=window))
     qt = q.transpose(1, 2)
     # (B, K, T, hd) -> (B, H, T, hd): a view for MHA and MQA, a copy for GQA
     kt, vt = (x.transpose(1, 2)[:, :, None].expand(B, K, H // K, T, hd)
@@ -867,7 +918,8 @@ def time_flash(torch, fa, ref, shape, dtype=None) -> dict:
     dtype_name = str(dtype)[6:]
     bound_ms, bound_by = attention_bound_ms(shape, dtype_name)
     sdpa_host_ms = host_enqueue_ms(torch, library)
-    print(f"flash_attention {shape} {dtype_name}: kernel {ms:.5f} ms back "
+    print(f"flash_attention {fa.design(B, S, H, dtype)} {shape} {dtype_name}"
+          f"{' with lse' if lse else ''}: kernel {ms:.5f} ms back "
           f"to back (device {dev_ms:.6f} ms, host enqueue {host_ms:.6f} ms), "
           f"plain {plain_ms:.5f} ms, sdpa {library_ms:.5f} ms back to back "
           f"(host enqueue {sdpa_host_ms:.6f} ms, |diff| {lib_err:.2e}), bound "
@@ -1248,6 +1300,17 @@ def check_encoder(torch, arch: str, fa, frames: int = 500) -> int:
     if launches != want:
         fail(f"{arch}: flash launched {launches} times in one forward; "
              f"expected {want}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            M.forward_hidden(params, batch, cfg, M.ModelOptions())
+        torch.cuda.synchronize()
+    designs = _flash_designs(_device_kernels(torch, prof))
+    want_design = fa.design(1, frames, cfg.num_heads, torch.float32)
+    if designs != {want_design: want}:
+        fail(f"{arch}: a traced forward's flash kernels are {designs}; want "
+             f"{want_design} {want}")
+    print(f"{arch} forward_hidden, traced: flash kernels {designs}")
     del params, hidden, hk, hp
     gc.collect()
     torch.cuda.empty_cache()
@@ -1704,6 +1767,13 @@ def profile_serving(torch, arch: str, wrappers: dict) -> dict:
     by_name = _device_kernels(torch, prof)
     busy_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    from repro_torch.kernels.flash_attention import design
+    flash = _flash_designs(by_name)
+    want = design(1, 32, cfg.num_heads, torch.bfloat16
+                  if arch in BF16_ARCHS else torch.float32)  # the prefills
+    if set(flash) - {want}:
+        fail(f"{arch}: the drain's flash kernels are {flash}; its 32-token "
+             f"prefills take {want} only")
     per_call, port = {}, {}
     for kernel, fn in wrappers.items():
         calls = fn.launches - before[kernel]
@@ -1717,7 +1787,7 @@ def profile_serving(torch, arch: str, wrappers: dict) -> dict:
            "device_idle_share": (1 - busy_ms / (wall_traced * 1e3))
            if by_name else None,
            "device_ms_per_call": per_call,
-           "port_kernels_ms": port,
+           "port_kernels_ms": port, "flash_designs": flash,
            "top_device_kernels_ms": [(k[:80], round(v[0], 4), v[1])
                                      for k, v in top]}
     if cfg.num_experts:
@@ -1764,6 +1834,18 @@ def _device_kernels(torch, prof) -> dict:
             rec[0] += e.time_range.elapsed_us() / 1e3
             rec[1] += 1
     return by_name
+
+
+def _flash_designs(by_name: dict) -> dict:
+    """Calls of each flash forward design among a profile's device kernels
+    by name (``_device_kernels``): {"f32" | "f32_rows" | "bf16": calls}."""
+    import re
+    out: dict[str, int] = {}
+    for name, (_, calls) in by_name.items():
+        m = re.search(r"flash_attention_kernel_(f32_rows|f32|bf16)<", name)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0) + calls
+    return out
 
 
 MOE_PARTS = {"_route": "moe.route", "_expert_stats": "moe.route",
@@ -1872,32 +1954,86 @@ def check_vgg(torch) -> dict:
     return report
 
 
+def _ptxas(name: str, pattern: str, key) -> dict:
+    """Registers and spill bytes of each kernel of ``csrc/<name>.cu``, from
+    the compiler's ``-Xptxas -v`` report of the build: {group: {kernel:
+    [registers, spill bytes]}}, ``key`` mapping the match of ``pattern`` in
+    a kernel's mangled name to (group, kernel)."""
+    import re
+
+    from repro_torch.kernels import _build
+    log = _build.library_path(name).with_suffix(".log")
+    found, cur = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(pattern, line)
+        if "Compiling entry" in line:
+            cur = key(m) if m else None
+        elif cur is not None:
+            rec = found.setdefault(cur[0], {}).setdefault(cur[1], [0, 0])
+            if (r := re.search(r"Used (\d+) registers", line)):
+                rec[0] = int(r.group(1))
+            if (r := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line)):
+                rec[1] = int(r.group(1)) + int(r.group(2))
+    return found
+
+
+# (B, S, H) query arrays whose forward takes each design and row count
+FWD_SMEM_CASES = {"f32": (1, 32, 16), "f32_rows32": (1, 288, 14),
+                  "f32_rows64": (8, 256, 16)}
+
+
+def fwd_ptxas(torch) -> dict:
+    """Phase 3: each forward instantiation's registers and spill bytes (the
+    f32 and bf16 kernels and f32_rows at 32 and 64 rows an item, at each
+    head dim). Fails if a kernel spills, or if the shared memory of the
+    block the built library launches differs from what the wrapper's
+    ``smem_bytes`` / ``smem_bytes_rows`` say for ``design``'s and
+    ``rows_per_item``'s choice."""
+    from repro_torch.kernels import flash_attention as fa
+    by_hd = _ptxas("flash_attention",
+                   r"flash_attention_kernel_(f32_rows|f32|bf16)ILi(\d+)E"
+                   r"(?:Li(\d+)E)?",
+                   lambda m: (int(m[2]), m[1] + (m[3] or "")))
+    kinds = sorted(["bf16", *FWD_SMEM_CASES])
+    if sorted(by_hd) != sorted(fa.HEAD_DIMS) or any(
+            sorted(ks) != kinds for ks in by_hd.values()):
+        fail(f"flash_attention: the ptxas report lists {by_hd}, not "
+             f"{kinds} at each head dim")
+    for hd, ks in sorted(by_hd.items()):
+        smem = {}
+        for kind, (B, S, H) in [("bf16", (1, 32, 16)),
+                                *FWD_SMEM_CASES.items()]:
+            dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+            design = fa.design(B, S, H, dtype)
+            want = (fa.smem_bytes_rows(hd, fa.rows_per_item(B, S, H))
+                    if design == "f32_rows" else fa.smem_bytes(hd, dtype))
+            built = fa.built_smem_bytes(hd, B, S, H, dtype)
+            if built != want or not kind.startswith(design):
+                fail(f"flash_attention {kind} hd {hd}: the kernel uses "
+                     f"{built} B of shared memory for {(B, S, H)}, the "
+                     f"wrapper says {want} ({design})")
+            smem[kind] = built
+        print(f"ptxas flash_attention hd {hd}: " + ", ".join(
+            f"{k} {r} registers {sp} B spilled, {smem[k]} B shared"
+            for k, (r, sp) in sorted(ks.items())))
+        if any(sp for _, sp in ks.values()):
+            fail(f"flash_attention hd {hd} spills: {ks}")
+    return {f"hd{hd}": ks for hd, ks in sorted(by_hd.items())}
+
+
 def bwd_ptxas(torch) -> dict:
     """Phase 9a: each backward instantiation's registers and spill bytes
     (the Δ, dkdv and dq kernels at each dtype and head dim), read from the
     compiler's ``-Xptxas -v`` report of the build. Fails if a kernel
     spills, or if the built kernels' shared memory differs from what the
     wrapper's ``smem_bytes_bwd`` says."""
-    import re
-
-    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
-    log = _build.library_path("flash_attention_bwd").with_suffix(".log")
-    found, cur = {}, None
-    for line in log.read_text().splitlines():
-        m = re.search(r"flash_attention_bwd_(delta|dkdv|dq)I(f|13__nv_bfloat16)"
-                      r"Li(\d+)E", line)
-        if "Compiling entry" in line:
-            cur = m.groups() if m else None
-        elif cur is not None:
-            rec = found.setdefault(
-                (("float32" if cur[1] == "f" else "bfloat16"), int(cur[2])),
-                {}).setdefault(cur[0], [0, 0])
-            if (r := re.search(r"Used (\d+) registers", line)):
-                rec[0] = int(r.group(1))
-            if (r := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
-                               r"spill loads", line)):
-                rec[1] = int(r.group(1)) + int(r.group(2))
+    found = _ptxas("flash_attention_bwd",
+                   r"flash_attention_bwd_(delta|dkdv|dq)I(f|13__nv_bfloat16)"
+                   r"Li(\d+)E",
+                   lambda m: (("float32" if m[2] == "f" else "bfloat16",
+                               int(m[3])), m[1]))
     if len(found) != 2 * len(fa.HEAD_DIMS) or any(
             len(k) != 3 for k in found.values()):
         fail(f"flash_attention_bwd: the ptxas report lists {sorted(found)}, "
@@ -2087,7 +2223,8 @@ def check_training(torch, fa, wrappers: dict) -> dict:
     with ``use_kernels=False`` from the same weights and batches: each
     step's loss and grad_norm within ``TRAIN_REL_TOL``. (4) Step time,
     tokens/s and peak memory over timed steps; one step profiled (busy,
-    idle share, device time by kernel). (5) The train state saved with the
+    idle share, device time by kernel; every flash forward in it the
+    long-query design). (5) The train state saved with the
     port's ``save_checkpoint``, restored and equal. Prints the training
     report; returns the main path's launch counts."""
     import tempfile
@@ -2187,6 +2324,11 @@ def check_training(torch, fa, wrappers: dict) -> dict:
         torch.cuda.synchronize()
         wall_traced = time.perf_counter() - t0
     by_name = _device_kernels(torch, prof)
+    designs = _flash_designs(by_name)
+    if designs != {"f32_rows": 2 * cfg.num_layers}:
+        fail(f"training: the traced step's flash forwards are {designs}; "
+             f"want f32_rows {2 * cfg.num_layers} (a forward and remat's "
+             "recompute a layer)")
     busy = sum(v[0] for v in by_name.values())
     groups = {"flash forward": "flash_attention_kernel",
               "flash backward": "flash_attention_bwd"}
@@ -2216,7 +2358,7 @@ def check_training(torch, fa, wrappers: dict) -> dict:
         "peak_bytes_timed_steps": peak_step,
         "traced_step_wall_ms": wall_traced * 1e3, "device_busy_ms": busy,
         "device_idle_share": 1 - busy / (wall_traced * 1e3),
-        "device_ms_by_group": by_group,
+        "device_ms_by_group": by_group, "flash_forward_designs": designs,
         "top_device_kernels_ms": [(k[:70], round(v[0], 4), v[1])
                                   for k, v in top]}
 

@@ -4,6 +4,15 @@
 (``csrc/flash_attention_bwd.cu``), which the reference does not have (it
 differentiates its jnp path).
 
+The forward has two fp32 designs, chosen by shape in the kernel's source
+and mirrored by ``design``: runs of at least ``ROWS_PER_ITEM`` query rows
+with work enough for the card (prefills of long prompts, encoders,
+training) go to ``flash_attention_kernel_f32_rows`` (64 or 32 rows a work
+item, register-blocked scores, persistent blocks); the rest (the served
+32-token prefills, small calls) to ``flash_attention_kernel_f32`` (a warp a
+query row, 8 rows a block). bf16 goes to ``flash_attention_kernel_bf16``
+(the tensor cores).
+
 The wrappers take CUDA tensors only: they check them, allocate the outputs,
 launch on the current stream of the tensors' device (which must be the
 current device) and raise if a launch is refused. ``flash_attention.launches``
@@ -28,19 +37,86 @@ HEAD_DIMS = (32, 64, 80, 128, 256)   # each a native instantiation
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_SMEM_BYTES = 232_448            # 227 KB: the most one Hopper block may use
 KEYS_PER_TILE = 32
+ROWS_PER_ITEM = 64                  # query rows of an f32_rows work item
+SMS = 132                           # an H100's SMs (rows_per_item's rule)
+MIN_ITEMS = 96                      # 32-row items of the smallest f32_rows call
 _ARGS = struct.Struct("15q")         # flash_attention_fwd's packed arguments
 _BWD_ARGS = struct.Struct("19q")     # flash_attention_bwd's
 
 
 def smem_bytes(hd: int, dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory of one block, as the kernel lays it out. fp32:
-    8 query rows and k padded by 4 floats a row, a ring of two 32-key tiles
-    of k and v. bf16: 64 query rows and the two-tile ring, every row padded
-    by 8 values."""
+    """Dynamic shared memory of an "f32" or "bf16" block (``design``), as
+    the kernel lays it out. fp32: 8 query rows and k padded by 4 floats a
+    row, a ring of two 32-key tiles of k and v. bf16: 64 query rows and the
+    two-tile ring, every row padded by 8 values."""
     if dtype == torch.bfloat16:
         return 2 * (hd + 8) * (64 + 4 * KEYS_PER_TILE)
     return 4 * (8 * (hd + 4) + 2 * KEYS_PER_TILE * (hd + 4)
                 + 2 * KEYS_PER_TILE * hd)
+
+
+def design(B: int, S: int, H: int, dtype: torch.dtype) -> str:
+    """The forward kernel that a call with a (B, S, H) query array in
+    ``dtype`` launches, as ``forward`` in ``csrc/flash_attention.cu``
+    decides: "f32_rows" for fp32 runs of at least ``ROWS_PER_ITEM`` rows
+    with at least ``MIN_ITEMS`` items of 32 rows (B·H·⌈S/32⌉; below that
+    the 8-row kernel's 4x more blocks win), else "f32" or "bf16"; the
+    kernel is ``flash_attention_kernel_<design>``."""
+    if dtype == torch.bfloat16:
+        return "bf16"
+    long_run = S >= ROWS_PER_ITEM and B * H * -(-S // 32) >= MIN_ITEMS
+    return "f32_rows" if long_run else "f32"
+
+
+def rows_per_item(B: int, S: int, H: int) -> int:
+    """Query rows of an f32_rows work item for a (B, S, H) query array: 32
+    when the 32-row items all fit on the card at once (B·H·⌈S/32⌉ <= SMS:
+    such a call runs as long as its longest item), else
+    ``ROWS_PER_ITEM``, which halves the KV tiles staged a query row."""
+    return 32 if B * H * -(-S // 32) <= SMS else ROWS_PER_ITEM
+
+
+def rows_key_tile(hd: int) -> int:
+    """Keys of an f32_rows KV tile: 64, or 32 at head dim 256 (shared
+    memory)."""
+    return 32 if hd == 256 else 64
+
+
+def smem_bytes_rows(hd: int, rows: int = ROWS_PER_ITEM) -> int:
+    """Dynamic shared memory of an f32_rows block of ``rows`` query rows an
+    item, as the kernel lays it out: the item's query rows and a ring of two
+    K tiles, rows padded by 4 floats; a ring of two V tiles; Pᵀ, a tile's
+    keys by the rows padded by 4; the rows' partial maxima or sums (2 ×
+    rows) and their rescales (rows)."""
+    bc = rows_key_tile(hd)
+    return 4 * (rows * (hd + 4) + 2 * bc * (hd + 4) + 2 * bc * hd
+                + bc * (rows + 4) + 3 * rows)
+
+
+def rows_items(B: int, S: int, T: int, H: int, hd: int, causal: bool,
+               window: int) -> list:
+    """The f32_rows kernel's work items in the order its blocks take them
+    (block n takes items n, n + grid, ...): (b, h, r0, nr, t_lo, ntiles),
+    the query rows [r0, r0 + nr) of (b, h) (``rows_per_item`` a tile), the
+    last query tile first, and the ntiles KV tiles from key t_lo that its
+    rows see. Under a causal mask a tile with a row that sees no key (T <
+    S) takes every KV tile, so that the row returns mean(v)."""
+    rows, bc = rows_per_item(B, S, H), rows_key_tile(hd)
+    row_tiles = -(-S // rows)
+    items = []
+    for n in range(B * H * row_tiles):
+        r0 = (row_tiles - 1 - n // (B * H)) * rows
+        nr = min(rows, S - r0)
+        first = r0 + T - S                  # the first row's position
+        lo, hi = 0, T
+        if not (causal and first < 0):
+            if causal:
+                hi = min(T, first + nr)
+            if window > 0:
+                lo = max(0, first - window + 1) // bc * bc
+        items.append((n % (B * H) // H, n % H, r0, nr, lo,
+                      -(-(hi - lo) // bc)))
+    return items
 
 
 def smem_bytes_bwd(hd: int, dtype: torch.dtype = torch.float32) -> int:
@@ -72,6 +148,8 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     lib.flash_attention_fwd.argtypes = [ctypes.c_char_p]
     lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_fwd_smem.argtypes = [ctypes.c_int] * 5
+    lib.flash_attention_fwd_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -83,6 +161,16 @@ def _bwd_library() -> ctypes.CDLL:
     lib.flash_attention_bwd_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.flash_attention_bwd_smem.restype = ctypes.c_longlong
     return lib
+
+
+def built_smem_bytes(hd: int, B: int, S: int, H: int,
+                     dtype: torch.dtype) -> int:
+    """The built forward kernel's own count of the shared memory of the
+    block it launches for a (B, S, H) query array (builds the kernel if
+    needed; -1 for a head dim it lacks): what ``smem_bytes`` and
+    ``smem_bytes_rows`` mirror."""
+    return _library().flash_attention_fwd_smem(hd, B, S, H,
+                                               dtype is torch.bfloat16)
 
 
 def built_smem_bytes_bwd(hd: int, dtype: torch.dtype) -> int:
@@ -124,10 +212,12 @@ def _check_static(q_shape, k_shape, v_shape, dtypes) -> None:
                          "need H % K == 0")
     if B == 0 or S == 0 or T == 0:
         raise ValueError("flash_attention: empty input")
-    if smem_bytes(hd, qd) > MAX_SMEM_BYTES:
-        raise ValueError(f"flash_attention: head_dim {hd} needs "
-                         f"{smem_bytes(hd, qd)} bytes of shared memory; "
-                         f"a block has {MAX_SMEM_BYTES}")
+    smem = (smem_bytes_rows(hd, rows_per_item(B, S, H))
+            if design(B, S, H, qd) == "f32_rows" else smem_bytes(hd, qd))
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"flash_attention: head_dim {hd} needs {smem} "
+                         f"bytes of shared memory; a block has "
+                         f"{MAX_SMEM_BYTES}")
 
 
 def _check_layout(q: torch.Tensor, k: torch.Tensor,
@@ -183,8 +273,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """softmax(q·kᵀ/√hd + mask)·v on the GPU. q: (B,S,H,hd); k, v:
     (B,T,K,hd), contiguous CUDA tensors of one dtype (fp32 or bf16) on the
     current device, hd in ``HEAD_DIMS`` (launched as it is, never padded),
-    H % K == 0. Queries are the last S of the T positions. Returns
-    (B,S,H,hd) in q's dtype. ``lse``, a contiguous fp32 (B,H,S) tensor on
+    H % K == 0. Queries are the last S of the T positions; ``design(B, S,
+    H, q.dtype)`` names the kernel launched. Returns (B,S,H,hd) in q's
+    dtype. ``lse``, a contiguous fp32 (B,H,S) tensor on
     the same device, receives each row's log-sum-exp of its scaled, masked
     scores (what ``flash_attention_bwd`` needs); None writes nothing
     more."""

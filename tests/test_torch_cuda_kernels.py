@@ -90,6 +90,31 @@ def test_row_with_no_visible_key_is_mean_of_v(cuda):
     torch.testing.assert_close(got[:, :blind], want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [
+    (8, 256, 16, 128, 16, 256, True, 0),   # olmo-1b training: 64-row items
+    (1, 288, 14, 64, 2, 288, True, 0),     # internvl2-1b: 32-row items
+    (1, 500, 16, 80, 16, 500, False, 0),   # hubert-xlarge
+    (2, 160, 16, 64, 4, 100, True, 0),     # T < S: blind rows, 2 KV tiles
+    (1, 300, 32, 128, 4, 300, True, 128),  # yi-9b's windowed prompt
+])
+def test_long_query_design_with_lse_matches_plain_version(cuda, shape):
+    """The fp32 long-query design (``fa.design``: f32_rows) and its
+    log-sum-exp against the plain version, and the shared memory of its
+    block against the wrapper's mirror."""
+    B, S, H, hd, K, T, causal, window = shape
+    assert fa.design(B, S, H, torch.float32) == "f32_rows"
+    q, k, v = _inputs(shape, torch.float32, cuda, seed=2)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=cuda)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, lse=lse)
+    want, want_lse = ref.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                                 window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    assert fa.built_smem_bytes(hd, B, S, H, torch.float32) == \
+        fa.smem_bytes_rows(hd, fa.rows_per_item(B, S, H))
+
+
 def test_dispatch_launches_kernel_and_counts(cuda):
     q, k, v = _inputs((1, 32, 16, 128, 16, 32, True, 0), torch.float32, cuda)
     before = fa.flash_attention.launches
