@@ -15,9 +15,15 @@ inside the model, a mask or positions, counts as replicated). With
 ``TrainOptions.batch_axes`` the microbatch split is redistributed so each
 microbatch's batch dim stays on the data axes, the reference's
 ``with_sharding_constraint``.
+
+``serving_span`` is the serving path's switch for its spans on the program
+tracer of ``obs.trace``: on while a torch profiler records, a no-op
+otherwise. With it ``decode_step`` is a ``steps.decode`` span, the host's
+issue of the step, which returns before the card has run it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -141,8 +147,9 @@ def decode_step(params, cache: list, batch: dict, cfg: ArchConfig,
     """``batch["pos"]`` may be an int (lock-step batch) or a (B,) tensor of
     per-slot positions (continuous batching). The cache is updated in
     place."""
-    return M.decode_step(params, batch["token"], batch["pos"], cache, cfg,
-                         opts)
+    with serving_span()("steps.decode"):
+        return M.decode_step(params, batch["token"], batch["pos"], cache,
+                             cfg, opts)
 
 
 @torch.no_grad()
@@ -156,3 +163,23 @@ def prefill_into_slot_step(params, cache: list, batch: dict, slot: int,
     the batched cache, updated in place)."""
     logits, one = M.prefill(params, batch, cfg, opts, cache_len)
     return logits[0], M.insert_cache_slot(cache, one, slot)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _no_span(name: str, t: float = 0.0, **attrs):
+    return _NO_SPAN
+
+
+def serving_span():
+    """``span`` of ``obs.trace.program_tracer()`` while a torch profiler
+    records on the calling thread, else a no-op of the same call, whose
+    context yields None: profiling the process turns the serving path's
+    spans on. The ``obs`` package, which pulls in the planner, is imported
+    only then. The program tracer keeps one stack of open spans, so one
+    thread at a time serves while a profiler records."""
+    if not torch.autograd._profiler_enabled():
+        return _no_span
+    from repro_torch.obs.trace import program_tracer
+    return program_tracer().span

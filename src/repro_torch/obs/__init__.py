@@ -9,7 +9,16 @@ from that calibration forever. This package makes the loop continuous:
                      *as they happen*, instead of post-hoc ``Ledger`` reads.
 * ``trace``        — :class:`Tracer` / :class:`Span`, per-replan trace
                      spans (simulated time + wall-clock duration + decision
-                     attributes, nested recalibrate → replan).
+                     attributes, nested recalibrate → replan); and the
+                     serving path's spans (``trace.program_tracer()``): an
+                     engine step's admission, prefills, decode, readback
+                     and retirements, each decode step's host issue, and
+                     each request's wait in the queue. They are
+                     recorded only while a ``torch.profiler`` records on
+                     the serving thread, so profiling the process turns
+                     them on; but for the queue wait each is also a
+                     ``repro_torch/<name>`` range on the timeline of a
+                     profiler that records operators.
 * ``drift``        — :class:`DriftDetector`, comparing measured engine
                      rates against the active
                      :class:`~repro_torch.sim.ledger.ServiceCalibration` and
@@ -26,7 +35,8 @@ from that calibration forever. This package makes the loop continuous:
 * ``export``       — the exporter bridge: :class:`JsonlMetricExporter`
                      (OTLP-ish newline-delimited JSON, a hub subscriber),
                      :func:`chrome_trace` / :func:`write_chrome_trace`
-                     (span trees as ``chrome://tracing`` JSON), and the
+                     (span trees as ``chrome://tracing`` JSON; the serving
+                     spans at their real host start times), and the
                      :class:`MetricAggregator` with Counter / Gauge /
                      Histogram instruments (exact p50/p95/p99).
 * ``regional``     — per-region live drift: :class:`WindowedServiceProbe`

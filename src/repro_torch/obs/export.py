@@ -137,21 +137,27 @@ def _emit_span(span: Span, events: list[dict], cursor_us: float,
     returning the cursor after the span. The synthesized ``ts`` timeline
     lays children out sequentially inside their parent — a span's recorded
     ``wall_ms`` includes its children's, so containment holds and the trace
-    UI renders the tree; the *exact* values ride in ``args``."""
+    UI renders the tree; the *exact* values ride in ``args``. A span with a
+    host start (``start_s``, a serving-path span) is placed there instead,
+    in microseconds of ``time.perf_counter``."""
     dur_us = span.wall_ms * 1e3
     child_us = sum(c.wall_ms for c in span.children) * 1e3
     dur_us = max(dur_us, child_us)        # float-rounding guard: contain kids
+    args = {"t": span.t, "wall_ms": span.wall_ms, "attrs": dict(span.attrs)}
+    cat = "replan"
+    if span.start_s is not None:
+        cursor_us = span.start_s * 1e6
+        args["start_s"] = span.start_s
+        cat = "program"
     events.append({
         "ph": "B", "name": span.name, "pid": _TRACE_PID, "tid": tid,
-        "ts": cursor_us, "cat": "replan",
-        "args": {"t": span.t, "wall_ms": span.wall_ms,
-                 "attrs": dict(span.attrs)},
+        "ts": cursor_us, "cat": cat, "args": args,
     })
     child_cursor = cursor_us
     for child in span.children:
         child_cursor = _emit_span(child, events, child_cursor, tid)
     events.append({"ph": "E", "name": span.name, "pid": _TRACE_PID,
-                   "tid": tid, "ts": cursor_us + dur_us, "cat": "replan"})
+                   "tid": tid, "ts": cursor_us + dur_us, "cat": cat})
     return cursor_us + dur_us
 
 
@@ -162,13 +168,25 @@ def chrome_trace(tracer_or_spans: Union[Tracer, Sequence[Span]]) -> dict:
     paired ``B``/``E`` duration events, whose stack discipline mirrors the
     tracer's call stack exactly. Load the written file in
     ``chrome://tracing`` or https://ui.perfetto.dev to browse replan /
-    recalibrate / solver spans on a zoomable timeline."""
+    recalibrate / solver spans on a zoomable timeline. Serving-path spans
+    sit at their real starts; a root that overlaps an earlier one (a
+    request's queue wait against the engine's steps) takes the first track
+    that is free by then."""
     spans = (tracer_or_spans.spans if isinstance(tracer_or_spans, Tracer)
              else list(tracer_or_spans))
     events: list[dict] = []
     cursor = 0.0
+    track_ends: list[float] = []      # each track's last root ends here
     for root in spans:
-        cursor = _emit_span(root, events, cursor, tid=1)
+        if root.start_s is None:
+            cursor = _emit_span(root, events, cursor, tid=1)
+            continue
+        start = root.start_s * 1e6
+        tid = next((i for i, end in enumerate(track_ends) if end <= start),
+                   len(track_ends))
+        if tid == len(track_ends):
+            track_ends.append(start)
+        track_ends[tid] = _emit_span(root, events, cursor, tid=tid + 1)
     return {
         "traceEvents": events,
         "displayTimeUnit": "ms",
@@ -207,7 +225,8 @@ def spans_from_chrome_trace(
             args = e.get("args", {})
             sp = Span(name=e["name"], t=args.get("t", 0.0),
                       wall_ms=args.get("wall_ms", 0.0),
-                      attrs=dict(args.get("attrs", {})))
+                      attrs=dict(args.get("attrs", {})),
+                      start_s=args.get("start_s"))
             if stack:
                 stack[-1].children.append(sp)
             else:

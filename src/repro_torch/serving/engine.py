@@ -19,6 +19,14 @@ and never copied. Stats and their exports
 (``measured_rates``, ``windowed_rates``, ``report``) match the reference's
 exactly, so the reference planner, simulator and observability code consume
 these engines unchanged.
+
+While a torch profiler records on the serving thread, each
+``ContinuousBatchingEngine.step`` is a tree of spans on the program tracer
+of ``obs.trace`` (``engine.step``, ``engine.admit``, ``engine.prefill``,
+``engine.decode``, ``engine.readback``, ``engine.retire``) and each admission
+records its request's ``request.queue`` wait; that module's docstring lists
+them. Outputs, ``stats`` and ``report()`` are the same with the spans on or
+off, and the engine's clock is read no more often.
 """
 from __future__ import annotations
 
@@ -278,13 +286,14 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
 
     # -- engine loop ---------------------------------------------------------
 
-    def _admit(self, req: Request, slot: int) -> None:
+    def _admit(self, req: Request, slot: int, span) -> None:
         tokens = torch.as_tensor(req.tokens[None, :], dtype=torch.long,
                                  device=self.device)
         logits, self.cache = steps.prefill_into_slot_step(
             self.params, self.cache, {"tokens": tokens}, slot, self.cfg,
             self.opts, self.cache_len)
-        first = int(_argmax(logits))
+        with span("engine.readback"):
+            first = int(_argmax(logits))
         self._slot_req[slot] = req
         self._slot_out[slot] = [first]
         self._slot_pos[slot] = len(req.tokens)
@@ -293,64 +302,87 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
         self.stats["tokens_generated"] += 1
         self._count_stream_token(req)
 
-    def _retire(self, slot: int) -> Request:
+    def _retire(self, slot: int, span) -> Request:
         req = self._slot_req[slot]
-        req.output = np.asarray(self._slot_out[slot], np.int32)
-        req.finish_t = time.monotonic()
-        self._latencies.append(req.latency_s)
-        if req.latency_s <= req.deadline_s:
-            self._slo_hits += 1
-        self._slot_req[slot] = None
-        self._slot_out[slot] = []
-        self.stats["requests"] += 1
+        with span("engine.retire", request_id=req.request_id) as sp:
+            req.output = np.asarray(self._slot_out[slot], np.int32)
+            req.finish_t = time.monotonic()
+            self._latencies.append(req.latency_s)
+            if req.latency_s <= req.deadline_s:
+                self._slo_hits += 1
+            self._slot_req[slot] = None
+            self._slot_out[slot] = []
+            self.stats["requests"] += 1
+            if sp is not None:
+                sp.attrs["latency_s"] = req.latency_s
         return req
 
     def step(self) -> list[Request]:
         """One engine iteration: EDF admission into free slots, then one
         batched decode step for every occupied slot. Returns the requests
         completed this iteration."""
-        t0 = time.monotonic()
-        clock0 = self.stats["wall_s"]
-        done: list[Request] = []
+        span = steps.serving_span()      # once a step: on while profiled
+        with span("engine.step") as root:
+            t0 = time.monotonic()
+            clock0 = self.stats["wall_s"]
+            done: list[Request] = []
 
-        # 1) admission, earliest deadline first
-        if self.queue:
-            self.queue.sort(key=lambda r: r.deadline_t)
-            for slot in range(self.max_slots):
-                if not self.queue:
-                    break
-                if self._slot_req[slot] is not None:
-                    continue
-                self._admit(self.queue.pop(0), slot)
-                if len(self._slot_out[slot]) >= \
-                        self._slot_req[slot].max_new_tokens:
-                    done.append(self._retire(slot))   # max_new_tokens == 1
+            # 1) admission, earliest deadline first
+            if self.queue:
+                with span("engine.admit"):
+                    self.queue.sort(key=lambda r: r.deadline_t)
+                    for slot in range(self.max_slots):
+                        if not self.queue:
+                            break
+                        if self._slot_req[slot] is not None:
+                            continue
+                        req = self.queue.pop(0)
+                        with span("engine.prefill",
+                                        request_id=req.request_id, slot=slot,
+                                        prompt_len=len(req.tokens),
+                                        queue_depth=len(self.queue)) as sp:
+                            if sp is not None:
+                                # enqueue_t is on the engine's clock: moved
+                                # to the tracer's by this step's two starts
+                                from repro_torch.obs.trace import \
+                                    program_tracer
+                                program_tracer().record(
+                                    "request.queue",
+                                    req.enqueue_t + root.start_s - t0,
+                                    sp.start_s, request_id=req.request_id)
+                            self._admit(req, slot, span)
+                        if len(self._slot_out[slot]) >= req.max_new_tokens:
+                            # max_new_tokens == 1
+                            done.append(self._retire(slot, span))
 
-        # 2) one decode step for all active slots (free slots ride along and
-        # are overwritten by the next admission's prefill)
-        active = self.active_slots()
-        if active:
-            tok = torch.as_tensor(self._pending, dtype=torch.long,
-                                  device=self.device)
-            pos = torch.as_tensor(self._slot_pos, dtype=torch.long,
-                                  device=self.device)
-            logits, self.cache = steps.decode_step(
-                self.params, self.cache, {"token": tok, "pos": pos}, self.cfg,
-                self.opts)
-            nxt = _argmax(logits)
-            self.stats["decode_steps"] += 1
-            self._occupancy_sum += len(active) / self.max_slots
-            for s in active:
-                self._slot_pos[s] += 1
-                self._slot_out[s].append(int(nxt[s]))
-                self._pending[s] = nxt[s]
-                self.stats["tokens_generated"] += 1
-                self._count_stream_token(self._slot_req[s])
-                if len(self._slot_out[s]) >= self._slot_req[s].max_new_tokens:
-                    done.append(self._retire(s))
+            # 2) one decode step for all active slots (free slots ride along
+            # and are overwritten by the next admission's prefill)
+            active = self.active_slots()
+            if active:
+                with span("engine.decode", active_slots=len(active)):
+                    tok = torch.as_tensor(self._pending, dtype=torch.long,
+                                          device=self.device)
+                    pos = torch.as_tensor(self._slot_pos, dtype=torch.long,
+                                          device=self.device)
+                    logits, self.cache = steps.decode_step(
+                        self.params, self.cache, {"token": tok, "pos": pos},
+                        self.cfg, self.opts)
+                with span("engine.readback"):
+                    nxt = _argmax(logits)
+                self.stats["decode_steps"] += 1
+                self._occupancy_sum += len(active) / self.max_slots
+                for s in active:
+                    self._slot_pos[s] += 1
+                    self._slot_out[s].append(int(nxt[s]))
+                    self._pending[s] = nxt[s]
+                    self.stats["tokens_generated"] += 1
+                    self._count_stream_token(self._slot_req[s])
+                    if len(self._slot_out[s]) >= \
+                            self._slot_req[s].max_new_tokens:
+                        done.append(self._retire(s, span))
 
-        self.stats["wall_s"] += time.monotonic() - t0
-        self._mark_windows(clock0, self.stats["wall_s"])
+            self.stats["wall_s"] += time.monotonic() - t0
+            self._mark_windows(clock0, self.stats["wall_s"])
         return done
 
     def drain(self) -> list[Request]:
