@@ -180,9 +180,10 @@ def apply_block_full(params, x: torch.Tensor, cfg: ArchConfig, kind,
     cache = None
     if mixer == "ssd":
         out = ssm.ssd_forward(params["mixer"], h, cfg,
-                              use_kernel=opts.use_kernels)
+                              use_kernel=opts.use_kernels,
+                              want_cache=want_cache)
         if want_cache:
-            cache = ssm.ssd_cache_from_prefill(params["mixer"], h, cfg)
+            out, cache = out
     elif mixer == "rglru":
         out = rglru.rglru_forward(params["mixer"], h, cfg,
                                   use_kernel=opts.use_kernels,

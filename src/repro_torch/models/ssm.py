@@ -3,10 +3,13 @@
 
 The full-sequence form runs the chunked SSD scan (``kernels.ops.ssd_scan``:
 the hand-written CUDA kernel on the GPU, its plain PyTorch version on the
-CPU) or, with ``use_kernel=False``, the plain version everywhere. Decode is
-the classic SSM state update in torch ops, as the reference's is jnp: an
-fp32 (B, H, P, N) state and the last ``ssm_conv - 1`` pre-conv inputs,
-both updated in place.
+CPU) or, with ``use_kernel=False``, the plain version everywhere. A prefill
+that wants a decode cache takes it from the same call
+(``ssd_forward(..., want_cache=True)``): ``h @ in_proj``, the conv and the
+discretisation are formed once, where the reference forms them twice.
+Decode is the classic SSM state update in torch ops, as the reference's is
+jnp: an fp32 (B, H, P, N) state and the last ``ssm_conv - 1`` pre-conv
+inputs, both updated in place.
 """
 from __future__ import annotations
 
@@ -50,13 +53,15 @@ def _gated_rmsnorm(y: torch.Tensor, scale: torch.Tensor,
 
 
 def ssd_forward(params, x: torch.Tensor, cfg: ArchConfig,
-                use_kernel: bool = False) -> torch.Tensor:
-    """Full-sequence Mamba-2 block. x: (B,S,D) -> (B,S,D)."""
+                use_kernel: bool = False, want_cache: bool = False):
+    """Full-sequence Mamba-2 block. x: (B,S,D) -> (B,S,D), or with
+    ``want_cache`` (y, the decode cache after this prefill from a zero
+    state; see ``ssd_cache_from_prefill``)."""
     B, S, D = x.shape
     di, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     zxbcdt = x @ params["in_proj"]
-    z, xBC, dt = _split_proj(cfg, zxbcdt)
-    xBC = F.silu(_causal_conv(xBC, params["conv_w"], params["conv_b"]))
+    z, xBC_raw, dt = _split_proj(cfg, zxbcdt)
+    xBC = F.silu(_causal_conv(xBC_raw, params["conv_w"], params["conv_b"]))
     xin = xBC[..., :di].reshape(B, S, H, P)
     Bm = xBC[..., di: di + N_GROUPS * N].reshape(B, S, N_GROUPS, N)
     Cm = xBC[..., di + N_GROUPS * N:].reshape(B, S, N_GROUPS, N)
@@ -83,7 +88,19 @@ def ssd_forward(params, x: torch.Tensor, cfg: ArchConfig,
     y = y + params["D"].to(x.dtype)[None, None, :, None] * xin
     y = y.reshape(B, S, di) * F.silu(z)
     y = _gated_rmsnorm(y, params["norm_scale"], x.dtype)
-    return y @ params["out_proj"]
+    y = y @ params["out_proj"]
+    if not want_cache:
+        return y
+    # the final state by one sum over the unpadded S positions (the scan
+    # kernel returns no state)
+    cs = torch.cumsum(dt * A, dim=1)                            # (B,S,H)
+    w = dt * torch.exp(cs[:, -1:, :] - cs)                      # dt·decay
+    xw = (xin.float() * w[..., None]).reshape(B, S, N_GROUPS,
+                                              H // N_GROUPS, P)
+    state = torch.einsum("bsgn,bsgrp->bgrpn", Bm.float(),
+                         xw).reshape(B, H, P, N)
+    conv = xBC_raw[:, S - (cfg.ssm_conv - 1):, :]
+    return y, {"state": state, "conv": conv}
 
 
 def ssd_init_cache(cfg: ArchConfig, batch: int, dtype, device) -> dict:
@@ -101,26 +118,12 @@ def ssd_init_cache(cfg: ArchConfig, batch: int, dtype, device) -> dict:
 
 def ssd_cache_from_prefill(params, h: torch.Tensor, cfg: ArchConfig) -> dict:
     """The decode cache after a prefill of ``h`` (B,S,D) from a zero state
-    (``repro.models.model._ssd_cache_from_prefill``): the final SSM state by
-    one sum over the unpadded S positions, and the conv history as the last
-    ``ssm_conv - 1`` pre-conv ``xBC`` rows. The scan kernel returns no state,
-    so the state is recomputed here; ``h @ in_proj`` is formed once (the
-    reference forms it twice, with the same numbers)."""
-    B, S, D = h.shape
-    di, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    zxbcdt = h @ params["in_proj"]
-    _, xBC_raw, dt = _split_proj(cfg, zxbcdt)
-    xBC = F.silu(_causal_conv(xBC_raw, params["conv_w"], params["conv_b"]))
-    xin = xBC[..., :di].reshape(B, S, H, P).float()
-    Bm = xBC[..., di: di + N_GROUPS * N].reshape(B, S, N_GROUPS, N).float()
-    dt = F.softplus(dt.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
-    cs = torch.cumsum(dt * A, dim=1)                            # (B,S,H)
-    w = dt * torch.exp(cs[:, -1:, :] - cs)                      # dt·decay
-    xw = (xin * w[..., None]).reshape(B, S, N_GROUPS, H // N_GROUPS, P)
-    state = torch.einsum("bsgn,bsgrp->bgrpn", Bm, xw).reshape(B, H, P, N)
-    conv = xBC_raw[:, S - (cfg.ssm_conv - 1):, :]
-    return {"state": state, "conv": conv}
+    (``repro.models.model._ssd_cache_from_prefill``): the final SSM state
+    (fp32) by one sum over the unpadded S positions, and the conv history as
+    the last ``ssm_conv - 1`` pre-conv ``xBC`` rows. It is the cache of
+    ``ssd_forward(..., want_cache=True)``, which a prefill calls to form
+    ``h @ in_proj`` once; this entry runs the whole block for it."""
+    return ssd_forward(params, h, cfg, want_cache=True)[1]
 
 
 def ssd_step(params, x: torch.Tensor, cache: dict, cfg: ArchConfig):

@@ -28,7 +28,9 @@ from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models import steps  # noqa: E402
 from repro_torch.models.config import get_config  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
+aten = torch.ops.aten
 ARCH = "mamba2-2.7b"
 CACHE_LEN = 48
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -96,6 +98,49 @@ def test_prefill_cache_matches_reference(block):
     for name in ("state", "conv"):
         np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
                                    **TOL)
+
+
+def _cache_by_second_projection(params, h, cfg):
+    """The prefill cache as the port built it before ``ssd_forward`` gave
+    it: ``h @ in_proj`` formed again, the conv, SiLU and discretisation
+    again, then the state sum."""
+    B, S, D = h.shape
+    di, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    G = ssm.N_GROUPS
+    zxbcdt = h @ params["in_proj"]
+    xBC_raw = zxbcdt[..., di: di + di + 2 * G * N]
+    dt = zxbcdt[..., di + di + 2 * G * N:]
+    xBC = torch.nn.functional.silu(
+        ssm._causal_conv(xBC_raw, params["conv_w"], params["conv_b"]))
+    xin = xBC[..., :di].reshape(B, S, H, P).float()
+    Bm = xBC[..., di: di + G * N].reshape(B, S, G, N).float()
+    dt = torch.nn.functional.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    cs = torch.cumsum(dt * A, dim=1)
+    w = dt * torch.exp(cs[:, -1:, :] - cs)
+    xw = (xin * w[..., None]).reshape(B, S, G, H // G, P)
+    state = torch.einsum("bsgn,bsgrp->bgrpn", Bm, xw).reshape(B, H, P, N)
+    return {"state": state, "conv": xBC_raw[:, S - (cfg.ssm_conv - 1):, :]}
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+@pytest.mark.parametrize("S", [64, 21, 3])   # 2 chunks, ragged, ssm_conv - 1
+def test_forward_cache_is_the_second_projections_bit_for_bit(block, S,
+                                                             use_kernel):
+    """The cache that ``ssd_forward(want_cache=True)`` takes from its own
+    projection is, tensor for tensor, the one a second ``h @ in_proj`` gave;
+    its output is the cacheless call's."""
+    cfg, _, tp = block
+    x = torch.from_numpy(_x(cfg, (2, S), seed=30 + S))
+    y, got = ssm.ssd_forward(tp, x, cfg, use_kernel=use_kernel,
+                             want_cache=True)
+    want = _cache_by_second_projection(tp, x, cfg)
+    assert got["state"].dtype == torch.float32
+    assert tuple(got["conv"].shape) == (2, cfg.ssm_conv - 1,
+                                        want["conv"].shape[-1])
+    for name in ("state", "conv"):
+        assert torch.equal(got[name], want[name]), name
+    assert torch.equal(y, ssm.ssd_forward(tp, x, cfg, use_kernel=use_kernel))
 
 
 def test_ssd_step_matches_reference(block):
@@ -367,3 +412,40 @@ def test_decode_rows_are_independent(weights):
         for name in ("state", "conv"):
             torch.testing.assert_close(p[name][1], a[name][0], atol=1e-5,
                                        rtol=1e-5)
+
+
+class _InProjProducts(TorchDispatchMode):
+    """Counts the matrix products whose right-hand operand has ``in_proj``'s
+    shape (d_model, d_in_proj)."""
+
+    def __init__(self, shape):
+        super().__init__()
+        self.shape, self.n = tuple(shape), 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        rhs = {aten.mm: 1, aten.bmm: 1, aten.addmm: 2}.get(
+            func.overloadpacket)
+        if rhs is not None and tuple(args[rhs].shape[-2:]) == self.shape:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_prefill_forms_in_proj_once_a_layer(weights):
+    """A serving prefill forms ``h @ in_proj`` once an SSD layer: its decode
+    cache comes from the forward's own projection, not a second one. A
+    cacheless forward forms it once too."""
+    _, _, cfg, params, _ = weights
+    mixer = params["layers"][0]["mixer"]
+    shape = (cfg.d_model, mixer["in_proj"].shape[1])
+    opts = M.ModelOptions()
+    cache = M.init_cache(cfg, 2, CACHE_LEN, torch.float32, opts, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (1, 40)))
+    with _InProjProducts(shape) as count:
+        steps.prefill_into_slot_step(params, cache, {"tokens": toks}, 1, cfg,
+                                     opts, CACHE_LEN)
+    assert count.n == cfg.num_layers
+    h = torch.from_numpy(_x(cfg, (1, 40), seed=11))
+    with _InProjProducts(shape) as count:
+        ssm.ssd_forward(mixer, h, cfg)
+    assert count.n == 1
