@@ -8,7 +8,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 1. Require a CUDA device of compute capability >= 9.0; print the card's
    name and power limit as ``nvidia-smi`` reports them.
 2. Build the CUDA kernels (flash attention and its backward, SSD chunked
-   scan, RG-LRU: the scan and the fused gates-and-scan form, one source) from
+   scan, RG-LRU: the scan and the fused gates-and-scan form, one source;
+   the grouped MoE expert products) from
    ``src/repro_torch/kernels/csrc`` with nvcc, one compiler per source, all
    started together (cached under ``build/``), and print their reports.
 3. Hold the flash kernel against its plain PyTorch version on seeded inputs:
@@ -254,11 +255,26 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    a timeout: 24 frames and its plans held the same way. Each plan's
    $/hour and instances printed with the closed form's beside them; a
    card line, then one ``{"loop": ...}`` line.
-15. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
+15. granite-4.0-h-small at full width in fp32 (18 of its 72 experts held,
+   47.3 GB), weights from a seeded generator on the card, through
+   ``ContinuousBatchingEngine`` with the kernels on, at its benchmark
+   cell's shapes: 16 frames of 576 tokens, 8 answered each, in 16 slots of
+   640. Every launch count, ``moe_experts.launches`` among them, set to 0
+   just before the drain and read just after: the grouped expert kernels
+   (``csrc/moe_experts.cu``) once a layer in every prefill and decode step
+   (40 layers), the SSD kernel in the 36 Mamba-2 layers and flash in the 4
+   attention layers of every prefill, nothing else. The grouped product's
+   first call at each of the drain's shapes (the prefill's 576 tokens with
+   the large tiles, the decode step's 16 with the small ones) is kept,
+   inputs and all, and the kernels held against
+   ``ref.moe_experts_ref`` on them within ``MOE_TOL`` of the largest
+   |output|; there they are timed (back to back, device alone by kernel,
+   host enqueue, the plain version) beside their bound.
+16. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
    its main paths, served, trained, the observability loop's, the
-   meshed training's and phase 14's serve; ``launches_by_path`` also holds
-   the phase-5 paths), then the last line ``{"ok": true, "device":
-   {...}}``.
+   meshed training's, phase 14's serve and phase 15's; ``launches_by_path``
+   also holds the phase-5 paths; the grouped expert kernels' record is
+   phase 15's), then the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout, so fp32 matrix products are full fp32.
 """
@@ -654,6 +670,17 @@ LOOP_ARCH = "olmo-1b"
 LOOP_PATH = "olmo-1b serve --dryrun-dir (phase 14)"
 LOOP_SERVE_TIMEOUT_S = 600
 STRATEGIES = ("per-stream", "uniform-big", "packed")
+# phase 15, granite-4.0-h-small at full width in fp32 (18 of its 72 experts
+# held, 47.3 GB of weights) at its benchmark cell's shapes: 576-token frames
+# answered with 8 tokens in 16 slots of 640, one wave of 16 frames
+GRANITE_ARCH = "granite-4.0-h-small"
+GRANITE_PATH = "granite-4.0-h-small serve (phase 15)"
+GRANITE_FRAMES, GRANITE_PROMPT, GRANITE_NEW = 16, 576, 8
+GRANITE_SLOTS, GRANITE_CACHE = 16, 640
+# the grouped expert kernels against their plain version, of the largest
+# |output|: fp32 sums of 4,096 and 768 products in another order (the
+# card's first reading, against torch._grouped_mm, was 2.0e-6)
+MOE_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -721,8 +748,10 @@ def device_ms(torch, fn, kernel: str, calls: int = 50) -> tuple[float, dict]:
               f"{len(seen)} traced: {sorted(seen)[:6]}", file=sys.stderr)
     if not by_name:
         fail(f"the profiler saw no device kernel named like {kernel}")
-    per = {k[:90]: v / calls for k, v in by_name.items()}
-    return sum(per.values()), per
+    per: dict[str, float] = {}
+    for k, v in by_name.items():         # instantiations whose names share
+        per[k[:90]] = per.get(k[:90], 0.0) + v / calls    # 90 chars: summed
+    return sum(by_name.values()) / calls, per
 
 
 def _bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
@@ -3566,6 +3595,143 @@ def check_loop(torch, wrappers: dict) -> tuple:
     return report, counts
 
 
+def moe_experts_bound_ms(x, rows, ends, w1) -> tuple[float, str]:
+    """Least time for one grouped expert call on these inputs: the weights
+    of every held expert that gets a row (w1, w3, w2: 3·D·F each), the
+    tokens and the rows' outputs, each read or written once at the HBM
+    rate, against the three products of each held row (6·D·F) at the fp32
+    rate."""
+    T, D = x.shape
+    F = w1.shape[2]
+    counts = np.diff(np.concatenate([[0], ends.cpu().numpy()]))
+    held_rows, touched = int(counts.sum()), int((counts > 0).sum())
+    nbytes = 4 * (3 * touched * D * F + T * D + held_rows * D)
+    return _bound(nbytes, 6.0 * D * F * held_rows, "float32")
+
+
+def check_granite(torch, wrappers: dict) -> tuple[dict, dict]:
+    """Phase 15: granite-4.0-h-small at full width in fp32, weights from a
+    seeded generator on the card, through ``ContinuousBatchingEngine`` with
+    the kernels on: ``GRANITE_FRAMES`` frames of ``GRANITE_PROMPT`` tokens,
+    ``GRANITE_NEW`` answered each, ``GRANITE_SLOTS`` slots of
+    ``GRANITE_CACHE``. Every launch count, ``moe_experts.launches`` among
+    them, is set to 0 just before the drain and read just after: the grouped
+    expert kernels once a layer in every prefill and decode step (40
+    layers), the SSD kernel in the 36 Mamba-2 layers and flash in the 4
+    attention layers of every prefill, nothing else. The first call of the
+    grouped expert product at each shape the drain gave it (the prefill's
+    576 tokens, the decode step's 16) is kept, inputs and all, and the
+    kernels are held against ``ref.moe_experts_ref`` on those inputs within
+    ``MOE_TOL`` of the largest |output|, over the held rows and the zero
+    row; then timed there (back to back, device alone, host enqueue, the
+    plain version, the bound). Returns the grouped kernel's record and the
+    other kernels' launches; the model freed."""
+    from repro_torch.kernels import moe_experts as me
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.config import get_config
+    from repro_torch.serving import ContinuousBatchingEngine, Request
+
+    cfg = get_config(GRANITE_ARCH)
+    params = _params(torch, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    eng = ContinuousBatchingEngine(cfg, params, max_slots=GRANITE_SLOTS,
+                                   cache_len=GRANITE_CACHE)
+    rng = np.random.default_rng(15)
+    for i in range(GRANITE_FRAMES):
+        eng.submit(Request(f"g{i}", rng.integers(
+            0, cfg.vocab_size, GRANITE_PROMPT).astype(np.int32),
+            max_new_tokens=GRANITE_NEW))
+    kept = {}
+    plain_op = ops.moe_experts
+
+    def keep_first(x, rows, ends, w1, w3, w2, small=False):
+        if x.shape[0] not in kept:
+            kept[x.shape[0]] = (x.clone(), rows.clone(), ends.clone(), w1,
+                                w3, w2, small)
+        return plain_op(x, rows, ends, w1, w3, w2, small)
+
+    kernels = {**wrappers, "moe_experts": me.moe_experts}
+    for fn in kernels.values():
+        fn.launches = 0
+    ops.moe_experts = keep_first
+    t0 = time.perf_counter()
+    try:
+        done = eng.drain()
+        torch.cuda.synchronize()
+    finally:
+        ops.moe_experts = plain_op
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    ran = eng.stats
+    print(f"{GRANITE_ARCH}: {len(done)} frames of {GRANITE_PROMPT} tokens in "
+          f"{wall:.2f} s; {ran['prefills']} prefills, {ran['decode_steps']} "
+          f"decode steps; launches {counts}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    if len(done) != GRANITE_FRAMES or any(
+            len(r.output) != GRANITE_NEW for r in done):
+        fail(f"{GRANITE_ARCH}: {len(done)} frames answered of "
+             f"{GRANITE_FRAMES}, or an answer of another length")
+    moe_layers = sum(1 for _, f in cfg.layer_kinds if f == "moe")
+    want = {name: expected_launches(cfg, name, ran["prefills"],
+                                    ran["decode_steps"]) for name in wrappers}
+    want["moe_experts"] = moe_layers * (ran["prefills"] + ran["decode_steps"])
+    if counts != want:
+        fail(f"{GRANITE_ARCH}: launches {counts}; expected {want}")
+    if sorted(kept) != [GRANITE_SLOTS, GRANITE_PROMPT]:
+        fail(f"{GRANITE_ARCH}: the grouped product saw token counts "
+             f"{sorted(kept)}; expected {GRANITE_SLOTS} and {GRANITE_PROMPT}")
+
+    shapes = {}
+    for T, label in ((GRANITE_PROMPT, "prefill"), (GRANITE_SLOTS, "decode")):
+        x, rows, ends, w1, w3, w2, small = kept[T]
+        if small != (label == "decode"):
+            fail(f"moe_experts {label}: small tiles {small}")
+        run = lambda: me.moe_experts(x, rows, ends, w1, w3, w2, small)
+        got = run()
+        want_y = ref.moe_experts_ref(x, rows, ends, w1, w3, w2)
+        torch.cuda.synchronize()
+        R, held = rows.shape[0], int(ends[-1])
+        keep = torch.cat([torch.arange(held, device=x.device),
+                          torch.tensor([R], device=x.device)])
+        err = (got[keep] - want_y[keep]).abs().max().item()
+        scale = want_y[keep].abs().max().item()
+        if not bool(got[keep].isfinite().all()) or err > MOE_TOL * scale:
+            fail(f"moe_experts {label} T {T}: max |err| {err:.3e} over "
+                 f"{MOE_TOL} x {scale:.3e}")
+        dev_ms, per_kernel = device_ms(torch, run, "moe_grouped_kernel")
+        t = {"ms": cuda_ms(torch, run), "device_ms_alone": dev_ms,
+             "device_ms_by_kernel": per_kernel,
+             "host_enqueue_ms": host_enqueue_ms(torch, run)}
+        t["plain_ms"] = cuda_ms(torch, lambda: ref.moe_experts_ref(
+            x, rows, ends, w1, w3, w2), iters=20, warmup=3)
+        t["bound_ms"], t["bound_by"] = moe_experts_bound_ms(x, rows, ends, w1)
+        shapes[label] = {"tokens": T, "held_rows": held, "entries": R,
+                         "small_tiles": small, "max_abs_err": err,
+                         "max_abs_out": scale, **t}
+        print(f"moe_experts {label} (T {T}, D {x.shape[1]}, F "
+              f"{w1.shape[2]}, {w1.shape[0]} held, {held} held rows of {R}):"
+              f" max |err| {err:.3e} of {scale:.3e}; {json.dumps(t)}")
+    del eng, params, kept, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre = shapes["prefill"]
+    return {"name": "moe_experts", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_experts.cu",
+            "replaces": None, "shape": [GRANITE_PROMPT, cfg.d_model,
+                                        cfg.moe_d_ff, cfg.held_experts],
+            "dtype": "float32", "max_abs_err": pre["max_abs_err"],
+            "ms": pre["ms"], "device_ms": pre["device_ms_alone"],
+            "device_ms_alone": pre["device_ms_alone"],
+            "device_ms_by_path": {GRANITE_PATH: pre["device_ms_alone"]},
+            "host_enqueue_ms": pre["host_enqueue_ms"],
+            "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+            "bound_by": pre["bound_by"], "library_ms": None,
+            "launches": counts["moe_experts"],
+            "launches_by_path": {GRANITE_PATH: counts["moe_experts"]},
+            "shapes": shapes}, {n: c for n, c in counts.items()
+                                if n != "moe_experts"}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3616,13 +3782,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_experts as me
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import ssd_scan as ssd
 
     # 2) build
     build_kernels({"flash_attention": fa, "flash_attention_bwd": fa,
-                   "ssd_scan": ssd, "rglru_scan": rg})
+                   "ssd_scan": ssd, "rglru_scan": rg, "moe_experts": me})
     wrappers = {"flash_attention": fa.flash_attention,
                 "ssd_scan": ssd.ssd_scan, "rglru_scan": rg.rglru_scan,
                 "rglru_gated_scan": rg.rglru_gated_scan,
@@ -3683,6 +3850,15 @@ def main() -> None:
             per_call = prof["device_ms_per_call"][name]
             records[name].setdefault("device_ms", per_call)
             records[name].setdefault("device_ms_by_path", {})[arch] = per_call
+
+    # 15) granite-4.0-h-small, the grouped expert kernels' main path: its
+    # record, and the other kernels' launches joining their sums
+    moe_record, counts = check_granite(torch, wrappers)
+    for name, n in counts.items():
+        records[name]["launches"] += n
+        if n:
+            records[name]["launches_by_path"][GRANITE_PATH] = n
+    records["moe_experts"] = moe_record
 
     # 9b-c) training, the served models freed: the main path's launches
     # join each kernel's sum and its paths

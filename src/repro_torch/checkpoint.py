@@ -59,13 +59,13 @@ def _block_shapes(cfg: ArchConfig, kind) -> dict:
     if kind[0] == "ssd":
         di, H, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_state
         conv_ch = di + 2 * N_GROUPS * N
-        return {"norm1": _norm_shapes(cfg),
-                "mixer": {"in_proj": (D, 2 * di + 2 * N_GROUPS * N + H),
-                          "conv_w": (cfg.ssm_conv, conv_ch),
-                          "conv_b": (conv_ch,), "A_log": (H,), "D": (H,),
-                          "dt_bias": (H,), "norm_scale": (di,),
-                          "out_proj": (di, D)}}
-    if kind[0] == "rglru":
+        mixer = {"in_proj": (D, 2 * di + 2 * N_GROUPS * N + H),
+                 "conv_w": (cfg.ssm_conv, conv_ch), "conv_b": (conv_ch,),
+                 "A_log": (H,), "D": (H,), "dt_bias": (H,),
+                 "norm_scale": (di,), "out_proj": (di, D)}
+        if kind[1] is None:
+            return {"norm1": _norm_shapes(cfg), "mixer": mixer}
+    elif kind[0] == "rglru":
         W = cfg.rnn_width
         mixer = {"wx": (D, W), "wgate": (D, W), "conv_w": (cfg.rnn_conv, W),
                  "conv_b": (W,), "wr": (W, W), "wi": (W, W), "lam": (W,),
@@ -75,10 +75,14 @@ def _block_shapes(cfg: ArchConfig, kind) -> dict:
         mixer = {"wq": (D, H * hd), "wk": (D, K * hd), "wv": (D, K * hd),
                  "wo": (H * hd, D)}
     if kind[1] == "moe":
-        E, Fe = cfg.num_experts, cfg.moe_d_ff
-        ffn = {"router": (D, E), "w1": (E, D, Fe), "w2": (E, Fe, D)}
+        E, Fe = cfg.held_experts, cfg.moe_d_ff
+        ffn = {"router": (D, cfg.num_experts), "w1": (E, D, Fe),
+               "w2": (E, Fe, D)}
         if cfg.gated:
             ffn["w3"] = (E, D, Fe)
+        if cfg.moe_shared_d_ff:
+            Fs = cfg.moe_shared_d_ff
+            ffn["shared"] = {"w1": (D, Fs), "w2": (Fs, D), "w3": (D, Fs)}
     else:
         ffn = {"w1": (D, cfg.d_ff), "w2": (cfg.d_ff, D)}
         if cfg.gated:
@@ -151,7 +155,8 @@ def _init_std(cfg: ArchConfig, path: str) -> float:
     std (an RG-LRU ``wo`` is 1/√W/√(2L), an attention ``wo`` 1/√(H·hd)/√(2L);
     an RG-LRU ``conv_w`` 1/√rnn_conv, an SSD one 1/√ssm_conv), and an FFN's
     ``w2`` its own FFN's (an MLP's 1/√d_ff/√(2L), an MoE's
-    1/√moe_d_ff/√(2L)), so the layer's block kind is read from the path."""
+    1/√moe_d_ff/√(2L), its shared expert's 1/√moe_shared_d_ff/√(2L)), so the
+    layer's block kind is read from the path."""
     parts = path.split("/")
     name = parts[-1]
     kind = (cfg.layer_kinds[int(parts[1])] if parts[0] == "layers"
@@ -167,6 +172,8 @@ def _init_std(cfg: ArchConfig, path: str) -> float:
         return out / math.sqrt(cfg.rnn_width)
     if name == "wo":
         return out / math.sqrt(cfg.num_heads * cfg.head_dim)
+    if name == "w2" and "shared" in parts:
+        return out / math.sqrt(cfg.moe_shared_d_ff)
     if name == "w2" and kind[1] == "moe":
         return out / math.sqrt(cfg.moe_d_ff)
     if name == "w2":

@@ -10,8 +10,9 @@ requires grad, ``flash_attention`` runs through ``FlashAttention``, a
 log-sum-exp and whose backward is the CUDA backward kernel
 (``flash_attention_bwd``) on the card, its plain version on the CPU.
 Otherwise it calls the forward alone, as the serving paths always do. The
-SSD and RG-LRU kernels have no backward kernel yet: on CUDA tensors under
-grad, ``ssd_scan``, ``rglru_scan`` and ``rglru_gated_scan`` raise
+SSD, RG-LRU and MoE expert kernels have no backward kernel yet: on CUDA
+tensors under grad, ``ssd_scan``, ``rglru_scan``, ``rglru_gated_scan`` and
+``moe_experts`` raise
 ``ValueError`` rather than hand back an output with no gradient (train such
 a model with ``ModelOptions(use_kernels=False)``). On the CPU their plain
 versions are differentiable torch ops.
@@ -24,6 +25,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_experts as _moe
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import ssd_scan as _ssd
@@ -125,3 +127,17 @@ def rglru_gated_scan(r_pre: torch.Tensor, i_pre: torch.Tensor,
                                         state_out)
     raise ValueError(f"rglru_gated_scan: no kernel for devices "
                      f"{sorted(devices)}; need all cuda or all cpu")
+
+
+def moe_experts(x: torch.Tensor, rows: torch.Tensor, ends: torch.Tensor,
+                w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
+                small: bool = False) -> torch.Tensor:
+    ts = (x, rows, ends, w1, w3, w2)
+    devices = {t.device.type for t in ts}
+    if devices == {"cuda"}:
+        _refuse_grad("moe_experts", ts)
+        return _moe.moe_experts(x, rows, ends, w1, w3, w2, small)
+    if devices == {"cpu"}:
+        return ref.moe_experts_ref(x, rows, ends, w1, w3, w2)
+    raise ValueError(f"moe_experts: no kernel for devices {sorted(devices)}; "
+                     "need all cuda or all cpu")

@@ -267,3 +267,19 @@ def rglru_gated_scan_ref(r_pre: torch.Tensor, i_pre: torch.Tensor,
     if state_out is None:
         return y, h[:, -1].contiguous()
     return y, state_out.copy_(h[:, -1])
+
+
+def moe_experts_ref(x: torch.Tensor, rows: torch.Tensor, ends: torch.Tensor,
+                    w1: torch.Tensor, w3: torch.Tensor,
+                    w2: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels.moe_experts.moe_experts``: each held
+    expert e's SwiGLU, (silu(x[rows[r]] @ w1[e]) * (x[rows[r]] @ w3[e])) @
+    w2[e], over its sorted rows r (ends[e-1] .. ends[e] - 1). Returns y
+    (R + 1, D), zero past the last held row. Reads ``ends`` on the host."""
+    y = x.new_zeros((rows.shape[0] + 1, w2.shape[2]))
+    start = 0
+    for e, end in enumerate(ends.tolist()):
+        xe = x[rows[start:end]]
+        y[start:end] = (F.silu(xe @ w1[e]) * (xe @ w3[e])) @ w2[e]
+        start = end
+    return y

@@ -26,7 +26,7 @@ def apply_norm(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     xf = x.float()
     if cfg.norm == "rmsnorm":
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
-        out = xf * torch.rsqrt(var + 1e-6)
+        out = xf * torch.rsqrt(var + cfg.rms_norm_eps)
         return (out * params["scale"].float()).to(x.dtype)
     if cfg.norm not in ("layernorm", "nonparam_ln"):
         raise ValueError(cfg.norm)
@@ -96,6 +96,14 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = x.redistribute(mesh, xp).to_local(grad_placements=xg) @ \
         w.redistribute(mesh, wp).to_local(grad_placements=wg)
     return DTensor.from_local(out, mesh, op, run_check=False)
+
+
+def scale_queries(q: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """q pre-scaled so that the kernels' and the einsums' 1/√hd softmax
+    scale becomes ``cfg.attention_multiplier``; unchanged where it is 0."""
+    if not cfg.attention_multiplier:
+        return q
+    return q * (cfg.attention_multiplier * math.sqrt(cfg.head_dim))
 
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
@@ -283,9 +291,10 @@ def attention_full(params, x: torch.Tensor, cfg: ArchConfig, *,
     q = _split_heads(linear(x, params["wq"]), H, hd)
     k = _split_heads(linear(x, params["wk"]), K, hd)
     v = _split_heads(linear(x, params["wv"]), K, hd)
-    if cfg.causal:
+    if cfg.causal and cfg.rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
+    q = scale_queries(q, cfg)
     if expand_kv and K < H:
         k = k.repeat_interleave(H // K, dim=2)
         v = v.repeat_interleave(H // K, dim=2)
@@ -313,7 +322,8 @@ def attention_full(params, x: torch.Tensor, cfg: ArchConfig, *,
 
 def _decode_qkv(params, x: torch.Tensor, pos, cfg: ArchConfig):
     """q, k, v of one new token per row, RoPE'd at ``pos`` (an int, or a
-    (B,) tensor of per-row positions), and the positions as (B, 1)."""
+    (B,) tensor of per-row positions) unless the config has no RoPE, q
+    scaled by ``scale_queries``, and the positions as (B, 1)."""
     B = x.shape[0]
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(linear(x, params["wq"]), H, hd)
@@ -325,8 +335,9 @@ def _decode_qkv(params, x: torch.Tensor, pos, cfg: ArchConfig):
             .expand(B)[:, None]
     else:
         posb = torch.full((B, 1), int(pos), dtype=torch.long, device=x.device)
-    return (rope(q, posb, cfg.rope_theta), rope(k, posb, cfg.rope_theta), v,
-            posb)
+    if cfg.rope:
+        q, k = rope(q, posb, cfg.rope_theta), rope(k, posb, cfg.rope_theta)
+    return scale_queries(q, cfg), k, v, posb
 
 
 def _write_rows(cache: torch.Tensor, slot: torch.Tensor,

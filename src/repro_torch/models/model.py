@@ -10,10 +10,10 @@ with one entry of ``layers`` per layer: the reference's ``lax.scan`` over
 stacked repeats becomes a Python loop, and its (repeat, ...) leaves become
 per-layer tensors (``repro_torch.checkpoint.load_flat`` splits them). An
 ``("ssd", None)`` layer has ``norm1`` and an SSD ``mixer`` (see
-``models.ssm``) and no ``norm2``/``ffn``; an ``("attn", "moe")``
-layer's ``ffn`` is ``{router, w1, w2[, w3]}`` (see ``models.moe``); an
-``("rglru", "mlp")`` layer has an RG-LRU ``mixer`` (see
-``models.rglru``). The cache is a list with one
+``models.ssm``) and no ``norm2``/``ffn``; an ``("attn", "moe")`` or
+``("ssd", "moe")`` layer's ``ffn`` is ``{router, w1, w2[, w3][, shared]}``
+(see ``models.moe``); an ``("rglru", "mlp")`` layer has an RG-LRU ``mixer``
+(see ``models.rglru``). The cache is a list with one
 dict per layer and no leading repeat axis: ``{"k", "v"}`` of (B, L, K, hd)
 for attention (a ring of L = min(cache_len, window) slots, position p in
 slot p % L, for ``attn_window`` or for ``ModelOptions.window_override`` with
@@ -22,7 +22,10 @@ and ``{"h", "conv"}`` for RG-LRU.
 
 ``embed_inputs`` is the frontend: token embeddings, a vision prefix of
 patch embeddings before them (``frontend="vision"``), or audio frame
-embeddings plus sinusoidal positions (``frontend="audio"``).
+embeddings plus sinusoidal positions (``frontend="audio"``). A config's
+``embedding_multiplier`` scales the token embeddings, its
+``residual_multiplier`` each block's mixer and FFN outputs before they join
+the residual, and its ``logits_scaling`` divides the logits.
 
 This port covers the block kinds in ``KINDS``. Modes:
   forward_hidden — full sequence, final-norm hidden states (an encoder)
@@ -97,7 +100,7 @@ class ModelOptions:
 
 
 KINDS = (("attn", "mlp"), ("attn", "moe"), ("attn_window", "mlp"),
-         ("rglru", "mlp"), ("ssd", None))
+         ("rglru", "mlp"), ("ssd", None), ("ssd", "moe"))
 
 
 def check_kind(kind) -> None:
@@ -151,29 +154,47 @@ def init_block_cache(cfg: ArchConfig, kind, batch: int, cache_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _residual(out: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """A block's mixer or FFN output as it joins the residual: times the
+    config's ``residual_multiplier`` (no op at 1)."""
+    r = cfg.residual_multiplier
+    return out if r == 1.0 else out * r
+
+
+def _apply_moe(params, h: torch.Tensor, cfg: ArchConfig, opts: ModelOptions,
+               want_aux: bool):
+    """An MoE FFN call, (out, aux): dropless (``capacity_factor`` 0, aux
+    None unless ``want_aux``), or the reference's capacity forms by
+    ``opts``."""
+    if cfg.capacity_factor == 0:
+        return moe.apply_moe_dropless(params, h, cfg, want_aux=want_aux,
+                                      use_kernel=opts.use_kernels)
+    if opts.moe_shard_map_mesh is not None:
+        return moe.apply_moe_shard_map(params, h, cfg,
+                                       opts.moe_shard_map_mesh,
+                                       dp_axes=opts.moe_shard_map_dp)
+    return moe.apply_moe(
+        params, h, cfg, local_dispatch=opts.moe_local_dispatch,
+        expert_shard_constraint=opts.moe_expert_shard_constraint)
+
+
 def _apply_ffn(params, x: torch.Tensor, cfg: ArchConfig, ffn: str,
-               opts: ModelOptions):
+               opts: ModelOptions, want_aux: bool = True):
     """The block's FFN after its mixer: (x + FFN(norm2(x)), MoE aux or
     None)."""
     h = layers.apply_norm(params["norm2"], x, cfg)
     if ffn == "moe":
-        if opts.moe_shard_map_mesh is not None:
-            out, aux = moe.apply_moe_shard_map(
-                params["ffn"], h, cfg, opts.moe_shard_map_mesh,
-                dp_axes=opts.moe_shard_map_dp)
-        else:
-            out, aux = moe.apply_moe(
-                params["ffn"], h, cfg, local_dispatch=opts.moe_local_dispatch,
-                expert_shard_constraint=opts.moe_expert_shard_constraint)
-        return x + out, aux
-    return x + layers.apply_mlp(params["ffn"], h, cfg), None
+        out, aux = _apply_moe(params["ffn"], h, cfg, opts, want_aux)
+        return x + _residual(out, cfg), aux
+    return x + _residual(layers.apply_mlp(params["ffn"], h, cfg), cfg), None
 
 
 def apply_block_full(params, x: torch.Tensor, cfg: ArchConfig, kind,
                      opts: ModelOptions, want_cache: bool,
-                     cache_len: int = 0):
+                     cache_len: int = 0, want_aux: bool = True):
     """Full-sequence block. Returns (x, aux, cache_or_None): aux is the MoE
-    auxiliary loss (fp32 scalar) of an ``moe`` FFN, else None."""
+    auxiliary loss (fp32 scalar) of an ``moe`` FFN, else None; without
+    ``want_aux`` the dropless form does not compute it (None)."""
     check_kind(kind)
     mixer, ffn = kind
     h = layers.apply_norm(params["norm1"], x, cfg)
@@ -204,10 +225,10 @@ def apply_block_full(params, x: torch.Tensor, cfg: ArchConfig, kind,
                                  f"{L}")
             cache = {"k": _ring_from_prefill(k, L, S),
                      "v": _ring_from_prefill(v, L, S)}
-    x = x + out
+    x = x + _residual(out, cfg)
     if ffn is None:
         return x, None, cache
-    x, aux = _apply_ffn(params, x, cfg, ffn, opts)
+    x, aux = _apply_ffn(params, x, cfg, ffn, opts, want_aux)
     return x, aux, cache
 
 
@@ -222,7 +243,8 @@ def _ring_from_prefill(k: torch.Tensor, L: int, S: int) -> torch.Tensor:
 def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
                        cfg: ArchConfig, kind, opts: ModelOptions):
     """One-token block. Returns (x, cache), the cache updated in place; an
-    MoE FFN's aux is dropped, as in the reference."""
+    MoE FFN's aux is dropped, as in the reference (the dropless form does
+    not compute it)."""
     check_kind(kind)
     mixer, ffn = kind
     h = layers.apply_norm(params["norm1"], x, cfg)
@@ -243,10 +265,10 @@ def apply_block_decode(params, x: torch.Tensor, cache: dict, pos,
                 params["mixer"], h, cache["k"], cache["v"], pos, cfg,
                 window=w)
         cache = {"k": ck, "v": cv}
-    x = x + out
+    x = x + _residual(out, cfg)
     if ffn is None:
         return x, cache
-    x, _ = _apply_ffn(params, x, cfg, ffn, opts)
+    x, _ = _apply_ffn(params, x, cfg, ffn, opts, want_aux=False)
     return x, cache
 
 
@@ -302,29 +324,46 @@ def embed_inputs(params, batch: dict, cfg: ArchConfig) -> torch.Tensor:
         x = batch["frames"]
         return x + _sin_positions(x.shape[1], x.shape[2], x.dtype,
                                   x.device)[None]
-    tok = layers.embed_tokens(params["embed"], batch["tokens"], cfg)
+    tok = _embed(params, batch["tokens"], cfg)
     if cfg.frontend == "vision":
         return torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
     return tok
 
 
+def _embed(params, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Token embeddings times the config's ``embedding_multiplier`` (no op
+    at 1)."""
+    x = layers.embed_tokens(params["embed"], tokens, cfg)
+    m = cfg.embedding_multiplier
+    return x if m == 1.0 else x * m
+
+
+def logits_of(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The output head over final-norm hidden states x (..., D): the
+    logits, divided by the config's ``logits_scaling`` (no op at 1)."""
+    logits = layers.unembed(params["embed"], x, cfg)
+    s = cfg.logits_scaling
+    return logits if s == 1.0 else logits / s
+
+
 def apply_stack_full(params, x: torch.Tensor, cfg: ArchConfig,
                      opts: ModelOptions, want_cache: bool,
-                     cache_len: int = 0):
+                     cache_len: int = 0, want_aux: bool = True):
     """All blocks over the full sequence. Returns (x, aux, caches_or_None):
     aux is the MoE auxiliary loss summed over the layers, an fp32 scalar
-    (0 without MoE blocks)."""
+    (0 without MoE blocks, and from dropless layers without
+    ``want_aux``)."""
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = opts.remat and torch.is_grad_enabled()
     for p, kind in zip(params["layers"], cfg.layer_kinds):
         if remat:
             x, aux_l, c = checkpoint(apply_block_full, p, x, cfg, kind, opts,
-                                     want_cache, cache_len,
+                                     want_cache, cache_len, want_aux,
                                      use_reentrant=False)
         else:
             x, aux_l, c = apply_block_full(p, x, cfg, kind, opts, want_cache,
-                                           cache_len)
+                                           cache_len, want_aux)
         if aux_l is not None:
             aux = aux + aux_l
         caches.append(c)
@@ -382,7 +421,7 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, opts: ModelOptions):
     the MoE aux. Returns (total, {"ce_loss", "aux_loss", "tokens"}), fp32
     0-d tensors, as ``repro.models.model.loss_fn``."""
     hidden, aux = forward_hidden(params, batch, cfg, opts)
-    logits = layers.unembed(params["embed"], hidden, cfg).float()
+    logits = logits_of(params, hidden, cfg).float()
     labels = batch["labels"].long()
     valid = labels >= 0
     safe = torch.where(valid, labels, 0)
@@ -417,10 +456,10 @@ def prefill(params, batch: dict, cfg: ArchConfig, opts: ModelOptions,
     check_cache_options(cfg, opts)
     x = embed_inputs(params, batch, cfg)
     x, _, cache = apply_stack_full(params, x, cfg, opts, want_cache=True,
-                                   cache_len=cache_len)
+                                   cache_len=cache_len, want_aux=False)
     x = layers.apply_norm(params["final_norm"], x, cfg)
     last = x[:, -1]
-    logits = layers.unembed(params["embed"], last[:, None], cfg)[:, 0]
+    logits = logits_of(params, last[:, None], cfg)[:, 0]
     return logits.float(), cache
 
 
@@ -429,11 +468,11 @@ def decode_step(params, token: torch.Tensor, pos, cache: list,
     """One decode step. token: (B,) integer tensor; pos: an int or a (B,)
     tensor of per-row positions. Returns (logits (B, V) in fp32, cache),
     the cache updated in place."""
-    x = layers.embed_tokens(params["embed"], token[:, None], cfg)
+    x = _embed(params, token[:, None], cfg)
     new_cache = []
     for p, c, kind in zip(params["layers"], cache, cfg.layer_kinds):
         x, c = apply_block_decode(p, x, c, pos, cfg, kind, opts)
         new_cache.append(c)
     x = layers.apply_norm(params["final_norm"], x, cfg)
-    logits = layers.unembed(params["embed"], x, cfg)[:, 0]
+    logits = logits_of(params, x, cfg)[:, 0]
     return logits.float(), new_cache

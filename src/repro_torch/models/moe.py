@@ -1,22 +1,40 @@
-"""Token-choice top-k Mixture-of-Experts with capacity dispatch, the port of
-``repro.models.moe``: global dispatch (``apply_moe``), per-sequence
+"""Token-choice top-k Mixture-of-Experts, in two forms.
+
+Parameters per MoE layer: ``router`` (D, E), ``w1``/``w3`` (E_held, D, F)
+and ``w2`` (E_held, F, D), and with ``cfg.moe_shared_d_ff`` a ``shared``
+SwiGLU expert {w1, w3 (D, Fs), w2 (Fs, D)}. Each token picks its K most
+probable experts (softmax over the fp32 router logits; the K weights
+renormalised to sum to 1, which equals a softmax over the K selected
+logits). Ties in top-k go to the lower expert index, as ``jax.lax.top_k``
+breaks them (``torch.topk`` does not): a stable descending sort, first K.
+The auxiliary load-balance loss is Switch/GShard's E·Σ_e f_e·P_e / K over
+all E experts, in fp32.
+
+**Dropless, one device's share** (``apply_moe_dropless``; a config with
+``capacity_factor`` 0): every entry routed to an expert computes. The layer
+holds experts first .. first + n - 1 of the E it routes over (``experts``,
+or experts 0 .. ``cfg.held_experts`` - 1), as one device of an
+expert-parallel group does, and returns the part of the output its experts
+give, plus the shared expert's. The entries that fall on held experts are
+sorted by expert on the device (a stable sort of each entry's held index,
+the others keyed past the last), each expert's end row is found by a
+binary search of the sorted keys, and the expert products run over exactly
+those rows (``kernels.ops.moe_experts``: the grouped CUDA kernels on the
+card). Nothing is read back on the host, so a decode step is not stalled
+once a layer; a token's output depends on no other token of the batch.
+The combine takes each token's K rows in k order (a zero row for an entry
+held elsewhere), weighted, summed over K: no atomics.
+
+**With a capacity** (every other MoE config: the port of
+``repro.models.moe``): global dispatch (``apply_moe``), per-sequence
 dispatch (``apply_moe_local``) and explicit expert parallelism over a mesh
-(``apply_moe_shard_map``).
+(``apply_moe_shard_map``). Each expert takes at most C tokens, C =
+ceil(T·K/E·capacity_factor) rounded up to a multiple of 4 and at least 4,
+filled in row-major (token, k) order; the entries past C are dropped. Every
+expert then runs over all its C slots, filled or not, as in the reference.
+The aux loss is taken before any drop. Two more points keep the port equal
+to the reference, and deterministic on the card:
 
-Parameters per MoE layer: ``router`` (D, E), ``w1``/``w3`` (E, D, F) and
-``w2`` (E, F, D). Each token picks its K most probable experts (softmax
-over the fp32 router logits; the K weights renormalised to sum to 1). Each
-expert takes at most C tokens, C = ceil(T·K/E·capacity_factor) rounded up
-to a multiple of 4 and at least 4, filled in row-major (token, k) order;
-the entries past C are dropped. Every expert then runs over all its C
-slots, filled or not, as in the reference. The auxiliary load-balance loss
-is Switch/GShard's E·Σ_e f_e·P_e / K, before any drop, in fp32.
-
-Three points keep the port equal to the reference, and deterministic on
-the card:
-
-* ties in top-k go to the lower expert index, as ``jax.lax.top_k`` breaks
-  them (``torch.topk`` does not): a stable descending sort, first K;
 * the dispatch writes each in-capacity slot once, so it is a plain
   indexed copy (the dropped entries all land in one extra slot that is
   thrown away);
@@ -26,10 +44,10 @@ the card:
 
 The expert products are batched matrix products (``torch.bmm``).
 
-On a mesh (DTensor inputs) every form runs expert-parallel by hand, as
-the reference's ``shard_map`` body does (``_moe_on_mesh``): the expert
-weights are sharded over "model" on the expert dim (replicated when the
-experts do not divide it), each rank routes its tokens, dispatches only
+On a mesh (DTensor inputs) every capacity form runs expert-parallel by
+hand, as the reference's ``shard_map`` body does (``_moe_on_mesh``): the
+expert weights are sharded over "model" on the expert dim (replicated when
+the experts do not divide it), each rank routes its tokens, dispatches only
 to its own experts and combines its partial output, and one all-reduce
 over "model" sums the parts. What differs is which tokens a rank routes
 and over which tokens capacity counts: global dispatch gathers the
@@ -47,8 +65,11 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
+from repro_torch.kernels.moe_experts import small_tiles
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import _act, shard_index
+from repro_torch.models.layers import _act, apply_mlp, shard_index
 
 
 def capacity(tokens: int, cfg: ArchConfig) -> int:
@@ -236,6 +257,58 @@ def apply_moe(params, x: torch.Tensor, cfg: ArchConfig,
                             require_expert_split=expert_shard_constraint)
     out, stats = _global(params, x, cfg)
     return out, _aux(*stats, cfg)
+
+
+def _sort_held(top_ids: torch.Tensor, first: int, n: int):
+    """The entries (T·K of ``top_ids``, row-major (token, k)) that fall on
+    experts first .. first + n - 1, sorted by expert, stably: (rows (T·K,),
+    each sorted row's token; ends (n,), each held expert's end row; pos
+    (T·K,), each entry's sorted row, or T·K for an entry held elsewhere).
+    Rows from ends[-1] on are entries held elsewhere."""
+    T, K = top_ids.shape
+    ids = top_ids.reshape(-1) - first
+    held = (ids >= 0) & (ids < n)
+    keys, order = torch.sort(torch.where(held, ids, n), stable=True)
+    ends = torch.searchsorted(keys, torch.arange(
+        1, n + 1, device=keys.device, dtype=keys.dtype))
+    pos = torch.empty_like(order).index_copy_(
+        0, order, torch.arange(T * K, device=order.device))
+    return order // K, ends, torch.where(held, pos, T * K)
+
+
+def apply_moe_dropless(params, x: torch.Tensor, cfg: ArchConfig,
+                       experts=None, want_aux: bool = True,
+                       use_kernel: bool = True):
+    """Dropless MoE over the experts this device holds: x (B, S, D) ->
+    (out (B, S, D), aux fp32 scalar, or None without ``want_aux``).
+    ``experts`` (first, count) are the held experts, whose weights
+    ``params`` holds (default: 0 .. ``cfg.held_experts`` - 1); the routing
+    is over all ``cfg.num_experts``. ``out`` is the held experts' part of
+    the routed sum plus the shared expert, if any. ``use_kernel`` sends the
+    expert products through ``kernels.ops`` (the CUDA kernels for CUDA
+    tensors), else through their plain version. The experts are SwiGLU."""
+    if isinstance(x, DTensor):
+        raise NotImplementedError("apply_moe_dropless: plain tensors only")
+    if not (cfg.gated and cfg.activation == "silu"):
+        raise ValueError("apply_moe_dropless: SwiGLU experts only")
+    B, S, D = x.shape
+    T, K = B * S, cfg.experts_per_token
+    xf = x.reshape(T, D)
+    probs, top_w, top_ids = _route(params["router"], xf, cfg)
+    first, n = experts if experts is not None else (0, cfg.held_experts)
+    rows, ends, pos = _sort_held(top_ids, first, n)
+    weights = (params["w1"], params["w3"], params["w2"])
+    if use_kernel:
+        y = kops.moe_experts(xf, rows, ends, *weights,
+                             small=small_tiles(T * K, cfg.num_experts))
+    else:
+        y = ref.moe_experts_ref(xf, rows, ends, *weights)
+    out = (y[pos] * top_w.reshape(-1, 1).to(y.dtype)).view(T, K, D).sum(1)
+    if cfg.moe_shared_d_ff:
+        out = out + apply_mlp(params["shared"], xf, cfg)
+    aux = _aux(*_expert_stats(probs, top_ids, cfg), cfg) if want_aux \
+        else None
+    return out.view(B, S, D), aux
 
 
 def apply_moe_shard_map(params, x: torch.Tensor, cfg: ArchConfig, mesh,

@@ -45,11 +45,11 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
     return z, xBC, dt
 
 
-def _gated_rmsnorm(y: torch.Tensor, scale: torch.Tensor,
-                   dtype: torch.dtype) -> torch.Tensor:
+def _gated_rmsnorm(y: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype,
+                   eps: float) -> torch.Tensor:
     yf = y.float()
     return (yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True)
-                             + 1e-6)).to(dtype) * scale
+                             + eps)).to(dtype) * scale
 
 
 def ssd_forward(params, x: torch.Tensor, cfg: ArchConfig,
@@ -87,7 +87,8 @@ def ssd_forward(params, x: torch.Tensor, cfg: ArchConfig,
         y = y[:, :S]
     y = y + params["D"].to(x.dtype)[None, None, :, None] * xin
     y = y.reshape(B, S, di) * F.silu(z)
-    y = _gated_rmsnorm(y, params["norm_scale"], x.dtype)
+    y = _gated_rmsnorm(y, params["norm_scale"], x.dtype,
+                       cfg.ssm_norm_eps)
     y = y @ params["out_proj"]
     if not want_cache:
         return y
@@ -156,6 +157,7 @@ def ssd_step(params, x: torch.Tensor, cache: dict, cfg: ArchConfig):
     y = torch.einsum("bhn,bhpn->bhp", Ch, st).to(x.dtype)
     y = y + params["D"].to(x.dtype)[None, :, None] * xin
     y = y.reshape(B, di) * F.silu(z)
-    y = _gated_rmsnorm(y, params["norm_scale"], x.dtype)
+    y = _gated_rmsnorm(y, params["norm_scale"], x.dtype,
+                       cfg.ssm_norm_eps)
     out = (y @ params["out_proj"])[:, None, :]
     return out, cache

@@ -73,7 +73,14 @@ def _x(shape, seed=1):
 def test_config_and_param_counts_equal_the_reference(arch):
     for reduced in (False, True):
         cfg, jcfg = get_config(arch, reduced), jget_config(arch, reduced)
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        ours, theirs = dataclasses.asdict(cfg), dataclasses.asdict(jcfg)
+        # every field of the reference's equal; the port's own fields
+        # (held and shared experts, multipliers, eps) at their defaults
+        assert {k: ours[k] for k in theirs} == theirs
+        defaults = dataclasses.asdict(dataclasses.replace(
+            cfg, **{f.name: f.default for f in dataclasses.fields(cfg)
+                    if f.name not in theirs}))
+        assert ours == defaults
         assert cfg.param_count() == jcfg.param_count()
         assert cfg.active_param_count() == jcfg.active_param_count()
         assert ("attn", "moe") in M.KINDS
