@@ -103,8 +103,13 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 6. The main paths: ``serve(arch, reduced=False, ...)`` with the continuous-
    batching engine for each model in turn; qwen3-moe-30b-a3b with bf16
    weights, through an engine built here and ``serve``'s second half,
-   ``launch.serve.measure_and_plan``. Every kernel's launch count is
-   set to 0 just before each run and read just after; each must equal (the
+   ``launch.serve.measure_and_plan``. Every decode step after the warmup
+   must replay the engine's CUDA graph (``decode_graph_share`` 1). Every
+   kernel's launch count is set to 0 just before each run and read just
+   after; where the model's decode step launches a port kernel (the fused
+   RG-LRU), which a replay runs without calling its wrapper, the run is
+   profiled from the engine's construction on and the counts are the calls
+   that ran on the card, by the trace. Each must equal (the
    served config's layers of the kernel's kind) x (prefills, and for the
    fused RG-LRU also the decode steps), the engine's own counts with the
    warmup's: olmo-1b, yi-9b and qwen3-moe-30b-a3b launch only the flash
@@ -115,14 +120,19 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    run's measured rates (every plan is validated).
 7. Profile one drain of 8 requests on each model with ``torch.profiler``:
    wall time with and without tracing, the device's busy time and idle
-   share, and device time by kernel (each port kernel's per wrapper call,
-   summed over the device kernels it launches; the fused RG-LRU kernel is
+   share, and device time by kernel (each port kernel's per call that ran
+   on the card, summed over the device kernels it launches; the calls are
+   counted in the trace, since a replayed decode step calls no wrapper,
+   and printed beside the kernel's layers x the drain's prefills and, for
+   the fused RG-LRU, decode steps; the fused RG-LRU kernel is
    named ``rglru_gated_scan_kernel`` in the trace; every flash kernel of a
    served drain must be the 32-token prefill's design, never the
    long-query one). For the MoE model, a
    second traced drain with each step of ``models.moe`` (routing,
    dispatch, the experts, combine) in a ``record_function`` range: the
-   device time under each step and the expert ``bmm``s' part. The idle
+   device time under each step and the expert ``bmm``s' part; that drain
+   decodes eagerly, the engine's CUDA graph set aside, since a replay runs
+   no Python for a range to label. The idle
    share is the unannotated drain's, for every model.
 8. The paper's analysis programs, VGG16 and ZF, at 224 px (reference
    head: 512 wide, 1000 classes), batch 1 and 8, weights from a seeded
@@ -259,20 +269,24 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    47.3 GB), weights from a seeded generator on the card, through
    ``ContinuousBatchingEngine`` with the kernels on, at its benchmark
    cell's shapes: 16 frames of 576 tokens, 8 answered each, in 16 slots of
-   640. Every launch count, ``moe_experts.launches`` among them, set to 0
-   just before the drain and read just after: the grouped expert kernels
+   640, under ``torch.profiler``. Every decode step must replay the
+   engine's CUDA graph, which calls no wrapper; the kernels' calls that ran
+   on the card, counted in the trace: the grouped expert kernels
    (``csrc/moe_experts.cu``) once a layer in every prefill and decode step
    (40 layers), the SSD kernel in the 36 Mamba-2 layers and flash in the 4
    attention layers of every prefill, nothing else. The grouped product's
-   first call at each of the drain's shapes (the prefill's 576 tokens with
-   the large tiles, the decode step's 16 with the small ones) is kept,
-   inputs and all, and the kernels held against
-   ``ref.moe_experts_ref`` on them within ``MOE_TOL`` of the largest
-   |output|; there they are timed (back to back, device alone by kernel,
-   host enqueue, the plain version) beside their bound.
+   first call at each shape (the drain's prefill of 576 tokens with the
+   large tiles; the decode step's 16 with the small ones, from one eager
+   step on the drain's last state, since a replay calls no wrapper) is
+   kept, inputs and all, and the kernels held
+   against ``ref.moe_experts_ref`` on them within ``MOE_TOL`` of the
+   largest |output|; there they are timed (back to back, device alone by
+   kernel, host enqueue, the plain version) beside their bound.
 16. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
-   its main paths, served, trained, the observability loop's, the
-   meshed training's, phase 14's serve and phase 15's; ``launches_by_path``
+   its calls that ran on the card on its main paths, served, trained, the
+   observability loop's, the meshed training's, phase 14's serve and phase
+   15's: its wrapper's calls, or, on a path whose replayed decode steps
+   launch it, its calls counted in the trace; ``launches_by_path``
    also holds the phase-5 paths; the grouped expert kernels' record is
    phase 15's), then the last line ``{"ok": true, "device": {...}}``.
 
@@ -397,6 +411,16 @@ KERNEL_MIXERS = {"flash_attention": (("attn", "attn_window"), False),
                  "ssd_scan": (("ssd",), False), "rglru_scan": ((), False),
                  "rglru_gated_scan": (("rglru",), True),
                  "flash_attention_bwd": ((), False)}   # training only
+# the device kernel that one call of each port kernel's wrapper launches,
+# as a trace names it, and how many of them a call launches (the SSD scan's
+# first kernel, once whatever else the call launches; the grouped expert
+# products' gated and plain forms)
+CALL_KERNELS = {"flash_attention": ("flash_attention_kernel_", 1),
+                "flash_attention_bwd": ("flash_attention_bwd_dq", 1),
+                "ssd_scan": ("ssd_scan_kernel_prep", 1),
+                "rglru_scan": ("rglru_scan_kernel", 1),
+                "rglru_gated_scan": ("rglru_gated_scan_kernel", 1),
+                "moe_experts": ("moe_grouped_kernel", 2)}
 # each served model and the kernels its main path runs
 SERVED = {"olmo-1b": ["flash_attention"], "mamba2-2.7b": ["ssd_scan"],
           "recurrentgemma-9b": ["rglru_gated_scan", "flash_attention"],
@@ -1657,16 +1681,20 @@ def expected_launches(cfg, kernel: str, prefills: int,
 def _counting_engine():
     """A subclass of the continuous-batching engine that keeps the prefills
     and decode steps it ran before each ``reset_stats`` (``serve()`` resets
-    them after its warmup request), and the list of its instances."""
+    them after its warmup request), and the list of its instances; its
+    ``on_built``, if set, runs once each engine is built."""
     from repro_torch.serving import ContinuousBatchingEngine
 
     class CountingEngine(ContinuousBatchingEngine):
         built = []
+        on_built = None                  # called once an engine is built
 
         def __init__(self, *args, **kw):
             super().__init__(*args, **kw)
             self.before_reset = {"prefills": 0, "decode_steps": 0}
             CountingEngine.built.append(self)
+            if CountingEngine.on_built is not None:
+                CountingEngine.on_built()
 
         def reset_stats(self) -> None:
             for k in self.before_reset:
@@ -1683,7 +1711,12 @@ def serve_path(torch, arch: str, wrappers: dict, dryrun_dir=None) -> tuple:
     """Phase 6 for one model: serve it at full width with every launch
     count set to 0 just before and read just after, check each count
     against the prefills and decode steps the engine ran (warmup included),
-    and plan the H100 fleet again from the measured rates. An fp32 model
+    and plan the H100 fleet again from the measured rates. Every decode
+    step after the warmup must replay the engine's CUDA graph. Where the
+    model's decode step launches a port kernel, a replay runs it without
+    calling the wrapper: that run is profiled from the engine's
+    construction on, and its counts are the calls that ran on the card, by
+    the trace (``_device_calls``). An fp32 model
     goes through ``serve()`` (with ``dryrun_dir``, phase 14); a bf16 one
     (``BF16_ARCHS``) through an engine built here on bf16 weights and
     ``serve``'s second half, ``measure_and_plan``. Returns the counts, for
@@ -1696,6 +1729,9 @@ def serve_path(torch, arch: str, wrappers: dict, dryrun_dir=None) -> tuple:
     from repro_torch.sim import ServiceCalibration
 
     engine_cls = _counting_engine()
+    traced = any(KERNEL_MIXERS[name][1] for name in SERVED[arch])
+    prof = _profiler() if traced else None
+    engine_cls.on_built = prof.start if traced else None
     plain_cls = serve_mod.ContinuousBatchingEngine
     serve_mod.ContinuousBatchingEngine = engine_cls
     try:
@@ -1716,23 +1752,31 @@ def serve_path(torch, arch: str, wrappers: dict, dryrun_dir=None) -> tuple:
                                      seconds=3, dryrun_dir=dryrun_dir,
                                      engine="continuous")
         torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in wrappers.items()}
+        calls = {name: fn.launches for name, fn in wrappers.items()}
         wall = time.perf_counter() - t0
     finally:
         serve_mod.ContinuousBatchingEngine = plain_cls
+        if traced and engine_cls.built:
+            prof.stop()
+    counts = _device_calls(torch, prof, wrappers) if traced else calls
     ran = engine_cls.built[-1].totals()
     calibration = (ServiceCalibration.from_engine(engine_cls.built[-1])
                    if arch == SIM_CALIBRATED_ARCH else None)
     engine_cls.built.clear()             # free the served model's weights
     print(json.dumps(report, sort_keys=True))
-    print(f"serve {arch} wall time {wall:.2f} s; launches {counts}; engine "
-          f"ran {ran['prefills']} prefills and {ran['decode_steps']} decode "
-          "steps, warmup included")
+    print(f"serve {arch} wall time {wall:.2f} s; launches {counts}"
+          + (f" by the trace, wrapper calls {calls}" if traced else "")
+          + f"; engine ran {ran['prefills']} prefills and "
+          f"{ran['decode_steps']} decode steps, warmup included")
     frames = report["frames_served"]
     if frames <= 0:
         fail(f"{arch}: served no frames")
     if report["serving_report"]["requests"] != frames:
         fail(f"{arch}: engine request count disagrees with frames served")
+    share = report["serving_report"]["decode_graph_share"]
+    if share != 1.0:
+        fail(f"{arch}: {share} of the decode steps replayed the engine's "
+             "CUDA graph; expected all")
     # every served frame is one prefill, plus the one warmup request that
     # serve() runs before it resets the stats
     if ran["prefills"] != frames + 1:
@@ -1766,13 +1810,18 @@ def profile_serving(torch, arch: str, wrappers: dict) -> dict:
     """Phase 7: one drain of 8 frame requests on a full-width model, timed
     without and then with ``torch.profiler``; from the traced run, the
     device's busy time (sum of kernel intervals on its one stream), its idle
-    share of the wall time, and device time by kernel. A port kernel's time
-    per call is the time of every device kernel named after it (the SSD
-    scan launches two to four per call) over its wrapper's calls in the
-    traced drain. For an MoE model a second traced drain, with each step
-    of ``models.moe`` in a ``record_function`` range, gives the device time
-    by MoE step against that drain's own busy time; the idle share, as for
-    every model, is the first (unannotated) drain's."""
+    share of the wall time, and device time by kernel. Each port kernel's
+    calls that ran on the card, by the trace (``_device_calls``: the decode
+    steps replay the engine's CUDA graph and call no wrapper), printed
+    beside its layers x the drain's prefills (and decode steps, for the
+    fused RG-LRU), which phases 6 and 15 check; its time per call is the
+    time of every device kernel named after it (the SSD scan launches two
+    to four per call) over those calls. For an MoE model a second traced drain, with each step of
+    ``models.moe`` in a ``record_function`` range, gives the device time by
+    MoE step against that drain's own busy time; it decodes eagerly, the
+    engine's graph set aside, since a replay runs no Python for a range to
+    label (the kernels are the same). The idle share, as for every model,
+    is the first (unannotated) drain's."""
     from repro_torch.models.config import get_config
     from repro_torch.serving import ContinuousBatchingEngine, StreamSimulator
 
@@ -1791,8 +1840,11 @@ def profile_serving(torch, arch: str, wrappers: dict) -> dict:
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
     sim.tick(streams)
-    before = {name: fn.launches for name, fn in wrappers.items()}
-    prof, wall_traced = _traced_drain(torch, eng)
+    before = dict(eng.stats)
+    prof, wall_traced, _ = _traced_drain(torch, eng)
+    prefills = eng.stats["prefills"] - before["prefills"]
+    decode_steps = eng.stats["decode_steps"] - before["decode_steps"]
+    device_calls = _device_calls(torch, prof, wrappers)
     by_name = _device_kernels(torch, prof)
     busy_ms = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
@@ -1804,8 +1856,10 @@ def profile_serving(torch, arch: str, wrappers: dict) -> dict:
         fail(f"{arch}: the drain's flash kernels are {flash}; its 32-token "
              f"prefills take {want} only")
     per_call, port = {}, {}
-    for kernel, fn in wrappers.items():
-        calls = fn.launches - before[kernel]
+    expected = {kernel: expected_launches(cfg, kernel, prefills,
+                                          decode_steps)
+                for kernel in device_calls}
+    for kernel, calls in device_calls.items():
         hits = {k: v for k, v in by_name.items() if f"{kernel}_kernel" in k}
         per_call[kernel] = (sum(v[0] for v in hits.values()) / calls
                             if hits and calls else None)
@@ -1815,17 +1869,20 @@ def profile_serving(torch, arch: str, wrappers: dict) -> dict:
            "device_busy_ms": busy_ms if by_name else None,
            "device_idle_share": (1 - busy_ms / (wall_traced * 1e3))
            if by_name else None,
+           "device_calls": device_calls, "expected_calls": expected,
            "device_ms_per_call": per_call,
            "port_kernels_ms": port, "flash_designs": flash,
            "top_device_kernels_ms": [(k[:80], round(v[0], 4), v[1])
                                      for k, v in top]}
     if cfg.num_experts:
         sim.tick(streams)
+        graph, eng._decode_graph = eng._decode_graph, None
         restore = _label_moe_parts(torch)
         try:
-            prof, wall_labelled = _traced_drain(torch, eng)
+            prof, wall_labelled, _ = _traced_drain(torch, eng)
         finally:
             restore()
+            eng._decode_graph = graph
         labelled_busy = sum(v[0] for v in _device_kernels(torch, prof)
                             .values())
         out["moe_drain"] = {"wall_traced_ms": wall_labelled * 1e3,
@@ -1838,17 +1895,39 @@ def profile_serving(torch, arch: str, wrappers: dict) -> dict:
     return out
 
 
+def _profiler():
+    """A ``torch.profiler`` of the host and the card."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
 def _traced_drain(torch, eng):
     """Drain ``eng`` under ``torch.profiler``. Returns (the profile, the
-    drain's wall seconds)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    drain's wall seconds, the requests it answered)."""
+    with _profiler() as prof:
         t0 = time.perf_counter()
-        eng.drain()
+        done = eng.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return prof, wall
+    return prof, wall, done
+
+
+def _device_calls(torch, prof, names) -> dict:
+    """Calls of each port kernel in ``names`` that ran on the card, by a
+    profile: its device kernels named as ``CALL_KERNELS`` says, over those
+    one call launches. A decode step replayed from an engine's CUDA graph
+    runs its kernels without calling their wrappers, so they count here and
+    not in a wrapper's ``launches``."""
+    by_name = _device_kernels(torch, prof)
+    out = {}
+    for name in names:
+        marker, per_call = CALL_KERNELS[name]
+        n = sum(calls for k, (_, calls) in by_name.items() if marker in k)
+        if n % per_call:
+            fail(f"{name}: {n} device kernels {marker}, not {per_call} a "
+                 "call")
+        out[name] = n // per_call
+    return out
 
 
 def _device_kernels(torch, prof) -> dict:
@@ -3614,20 +3693,26 @@ def check_granite(torch, wrappers: dict) -> tuple[dict, dict]:
     seeded generator on the card, through ``ContinuousBatchingEngine`` with
     the kernels on: ``GRANITE_FRAMES`` frames of ``GRANITE_PROMPT`` tokens,
     ``GRANITE_NEW`` answered each, ``GRANITE_SLOTS`` slots of
-    ``GRANITE_CACHE``. Every launch count, ``moe_experts.launches`` among
-    them, is set to 0 just before the drain and read just after: the grouped
-    expert kernels once a layer in every prefill and decode step (40
-    layers), the SSD kernel in the 36 Mamba-2 layers and flash in the 4
-    attention layers of every prefill, nothing else. The first call of the
-    grouped expert product at each shape the drain gave it (the prefill's
-    576 tokens, the decode step's 16) is kept, inputs and all, and the
-    kernels are held against ``ref.moe_experts_ref`` on those inputs within
+    ``GRANITE_CACHE``. The drain runs under ``torch.profiler``, with every
+    launch count, ``moe_experts.launches`` among them, set to 0 just before
+    it; every decode step must replay the engine's CUDA graph, and the
+    kernels' calls that ran on the card, by the trace (``_device_calls``:
+    a replay calls no wrapper), must be the grouped expert kernels once a
+    layer in every prefill and decode step (40 layers), the SSD kernel in
+    the 36 Mamba-2 layers and flash in the 4 attention layers of every
+    prefill, nothing else. The first call of the
+    grouped expert product at each shape (the drain's prefill of 576
+    tokens; the decode step's 16, from one eager step on the drain's last
+    state, since the drain's decode steps replay the engine's CUDA graph and
+    call no wrapper) is kept, inputs and all, and the kernels are held
+    against ``ref.moe_experts_ref`` on those inputs within
     ``MOE_TOL`` of the largest |output|, over the held rows and the zero
     row; then timed there (back to back, device alone, host enqueue, the
     plain version, the bound). Returns the grouped kernel's record and the
-    other kernels' launches; the model freed."""
+    other kernels' calls on the card; the model freed."""
     from repro_torch.kernels import moe_experts as me
     from repro_torch.kernels import ops, ref
+    from repro_torch.models import steps
     from repro_torch.models.config import get_config
     from repro_torch.serving import ContinuousBatchingEngine, Request
 
@@ -3654,19 +3739,32 @@ def check_granite(torch, wrappers: dict) -> tuple[dict, dict]:
     for fn in kernels.values():
         fn.launches = 0
     ops.moe_experts = keep_first
-    t0 = time.perf_counter()
     try:
-        done = eng.drain()
+        prof, wall, done = _traced_drain(torch, eng)
+        calls = {name: fn.launches for name, fn in kernels.items()}
+        counts = _device_calls(torch, prof, kernels)
+        del prof
+        # the drain's decode steps replay the engine's CUDA graph, which
+        # calls no wrapper: one eager step from the drain's last state
+        # gives the grouped product its decode inputs
+        steps.decode_step(params, eng.cache, {
+            "token": torch.as_tensor(eng._pending, dtype=torch.long,
+                                     device="cuda"),
+            "pos": torch.as_tensor(eng._slot_pos, dtype=torch.long,
+                                   device="cuda")}, cfg, eng.opts)
         torch.cuda.synchronize()
     finally:
         ops.moe_experts = plain_op
-    wall = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in kernels.items()}
     ran = eng.stats
+    share = eng.report()["decode_graph_share"]
     print(f"{GRANITE_ARCH}: {len(done)} frames of {GRANITE_PROMPT} tokens in "
-          f"{wall:.2f} s; {ran['prefills']} prefills, {ran['decode_steps']} "
-          f"decode steps; launches {counts}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+          f"{wall:.2f} s traced; {ran['prefills']} prefills, "
+          f"{ran['decode_steps']} decode steps, {share} of them replayed; "
+          f"launches {counts} by the trace, wrapper calls {calls}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    if share != 1.0:
+        fail(f"{GRANITE_ARCH}: {share} of the decode steps replayed the "
+             "engine's CUDA graph; expected all")
     if len(done) != GRANITE_FRAMES or any(
             len(r.output) != GRANITE_NEW for r in done):
         fail(f"{GRANITE_ARCH}: {len(done)} frames answered of "

@@ -1,6 +1,7 @@
 """Step functions: train (with microbatch gradient accumulation), prefill,
 decode and prefill-into-slot, ported from ``repro.models.steps``. PyTorch
-runs eagerly, so there is no jit wrapper.
+runs eagerly, so there is no jit wrapper; on the card a serving engine's
+decode step is replayed from a CUDA graph captured once (``DecodeGraph``).
 
 ``train_step`` differentiates ``model.loss_fn`` with ``torch.autograd``:
 with the kernels on, flash attention's gradient is the CUDA backward kernel
@@ -143,13 +144,87 @@ def prefill_step(params, batch: dict, cfg: ArchConfig, opts: M.ModelOptions,
 
 @torch.no_grad()
 def decode_step(params, cache: list, batch: dict, cfg: ArchConfig,
-                opts: M.ModelOptions):
+                opts: M.ModelOptions, graph: DecodeGraph | None = None):
     """``batch["pos"]`` may be an int (lock-step batch) or a (B,) tensor of
     per-slot positions (continuous batching). The cache is updated in
-    place."""
+    place. With ``graph``, a step on the input it was captured for
+    (``DecodeGraph.takes``) is a replay of it, and returns a copy of the
+    graph's logits; any other input runs eagerly."""
     with serving_span()("steps.decode"):
+        if graph is not None and graph.takes(params, cache, batch):
+            return graph.replay(batch["token"], batch["pos"]), cache
         return M.decode_step(params, batch["token"], batch["pos"], cache,
                              cfg, opts)
+
+
+def _cache_storage(cache: list) -> tuple:
+    return tuple((t.data_ptr(), tuple(t.shape)) for layer in cache
+                 for t in layer.values())
+
+
+def _tf32() -> tuple:
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+class DecodeGraph:
+    """``M.decode_step`` of ``slots`` rows at per-row positions, captured
+    once as a CUDA graph over one engine's ``params`` and ``cache`` (plain
+    CUDA tensors): every step then replays the same kernels on the same
+    tensors, and the host issues one graph launch instead of each kernel.
+
+    Built: static ``token`` and ``pos`` buffers of (slots,), one eager
+    warm-up step on a side stream (the kernels' first calls, cuBLAS's
+    workspaces), then the capture, then the cache zeroed again, so the
+    engine starts as without the graph. A kernel wrapper's ``launches``
+    counts its calls, so the warm-up and the capture count and a replay,
+    which calls no wrapper, does not. ``replays`` counts the replays."""
+
+    def __init__(self, params, cache: list, cfg: ArchConfig,
+                 opts: M.ModelOptions, slots: int):
+        self.params = params
+        dev = params["embed"]["embedding"].device
+        self.token = torch.zeros(slots, dtype=torch.long, device=dev)
+        self.pos = torch.zeros(slots, dtype=torch.long, device=dev)
+        self.replays = 0
+        self._storage, self._flags = _cache_storage(cache), _tf32()
+        with torch.no_grad(), torch.cuda.device(dev):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                M.decode_step(params, self.token, self.pos, cache, cfg, opts)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.logits, _ = M.decode_step(params, self.token, self.pos,
+                                               cache, cfg, opts)
+            for layer in cache:
+                for t in layer.values():
+                    t.zero_()
+
+    def takes(self, params, cache: list, batch: dict) -> bool:
+        """Whether a step is the one captured: the same ``params`` object,
+        the cache's tensors where they were, (slots,) token and position
+        tensors, and the TF32 flags of the capture."""
+        tok, pos = batch["token"], batch["pos"]
+        return (params is self.params
+                and isinstance(pos, torch.Tensor)
+                and pos.shape == self.pos.shape
+                and isinstance(tok, torch.Tensor)
+                and tok.shape == self.token.shape
+                and _tf32() == self._flags
+                and _cache_storage(cache) == self._storage)
+
+    def replay(self, token: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """One step: the inputs into the static buffers, the graph
+        replayed; returns a copy of its logits (B, V), which the next
+        replay would overwrite."""
+        self.token.copy_(token)
+        self.pos.copy_(pos)
+        self.graph.replay()
+        self.replays += 1
+        return self.logits.clone()
 
 
 @torch.no_grad()

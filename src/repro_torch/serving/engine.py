@@ -18,7 +18,15 @@ or each row's state and conv history (SSD), so the pool is allocated once
 and never copied. Stats and their exports
 (``measured_rates``, ``windowed_rates``, ``report``) match the reference's
 exactly, so the reference planner, simulator and observability code consume
-these engines unchanged.
+these engines unchanged; ``ContinuousBatchingEngine.report()`` adds one
+field of its own, ``decode_graph_share``.
+
+On a CUDA device, with plain (not DTensor) parameters,
+``ContinuousBatchingEngine`` captures its decode step once, when it is
+built, as a CUDA graph over its own cache (``steps.DecodeGraph``), and each
+step replays it: the same kernels on the same tensors, one launch for the
+host to issue. The static engine, whose position is an int, decodes
+eagerly.
 
 While a torch profiler records on the serving thread, each
 ``ContinuousBatchingEngine.step`` is a tree of spans on the program tracer
@@ -36,10 +44,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import model as M
 from repro_torch.models import steps
 from repro_torch.models.config import ArchConfig
+from repro_torch.tree import leaves
 
 
 @dataclasses.dataclass
@@ -247,7 +257,9 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
 
     Greedy decoding is identical to the static engine's: the prefill's
     last-position argmax is the first generated token, and each decode step
-    at position prompt_len + i yields token i + 1.
+    at position prompt_len + i yields token i + 1. On the card each decode
+    step is a replay of the graph captured at construction; the graph
+    counts its replays, and ``report()["decode_graph_share"]`` reads them.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, max_slots: int = 8,
@@ -262,6 +274,13 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
         self.queue: list[Request] = []
         self.cache = M.init_cache(cfg, max_slots, cache_len, dtype, self.opts,
                                   device=self.device)
+        # the decode step as a CUDA graph, captured now (before any
+        # profiler a caller starts) where every tensor is a plain CUDA one
+        self._decode_graph = None
+        if self.device.type == "cuda" and not any(
+                isinstance(t, DTensor) for t in leaves([params, self.cache])):
+            self._decode_graph = steps.DecodeGraph(params, self.cache, cfg,
+                                                   self.opts, max_slots)
         self._slot_req: list[Optional[Request]] = [None] * max_slots
         self._slot_pos = np.zeros(max_slots, np.int32)   # next write position
         self._slot_out: list[list[int]] = [[] for _ in range(max_slots)]
@@ -366,7 +385,7 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
                                           device=self.device)
                     logits, self.cache = steps.decode_step(
                         self.params, self.cache, {"token": tok, "pos": pos},
-                        self.cfg, self.opts)
+                        self.cfg, self.opts, graph=self._decode_graph)
                 with span("engine.readback"):
                     nxt = _argmax(logits)
                 self.stats["decode_steps"] += 1
@@ -394,14 +413,18 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
     # -- reporting -----------------------------------------------------------
 
     def reset_stats(self) -> None:
-        """Zero the counters and latency records (e.g. after a warmup)."""
+        """Zero the counters, the graph's replays among them, and latency
+        records (e.g. after a warmup)."""
         super().reset_stats()
+        if self._decode_graph is not None:
+            self._decode_graph.replays = 0
         self._latencies = []
         self._slo_hits = 0
         self._occupancy_sum = 0.0
 
     def report(self) -> dict:
-        """SLO attainment, latency percentiles, and slot occupancy. With no
+        """SLO attainment, latency percentiles, slot occupancy, and the
+        share of decode steps replayed from the CUDA graph. With no
         completed requests the latency fields *and* ``slo_attainment`` are
         ``None`` and the counters are zero; the report never raises."""
         lat = sorted(self._latencies)
@@ -420,6 +443,8 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
             "p50_latency_s": pct(0.50),
             "p99_latency_s": pct(0.99),
             "slot_occupancy": (self._occupancy_sum / steps_) if steps_ else 0.0,
+            "decode_graph_share": (self._decode_graph.replays / steps_)
+            if steps_ and self._decode_graph is not None else 0.0,
         }
 
 
