@@ -169,50 +169,23 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    design); the train state through the port's checkpoint and back,
    equal. (c) ``ops.ssd_scan``, ``ops.rglru_scan`` and
    ``ops.rglru_gated_scan`` refuse CUDA inputs that require grad.
-10. The paper's resource manager (``repro_torch.core``, host only), with
-   ``jax`` and ``repro`` absent from ``sys.modules``: Fig. 3's nine cells
-   through ``ResourceManager(fig3_catalog())`` (cost, non-GPU and GPU
-   counts, optimal, the Fail of ST1 in scenario 3), the 61/36/3% savings
-   and the >50% headline; Fig. 6's NL, ARMVAC, ARMVAC+ and GCL at
-   ``tests/test_fig6.py``'s rates (GCL optimal and cheapest, its savings);
-   Table I's catalog field for field and Fig. 3's scenarios on it; the
-   48-hour rush-hour trace of ``AdaptiveManager`` in ST3 and REPAIR mode
-   (each hour's action, total cost, migrations); a REPAIR replan of a
-   drifted 400-stream fleet and a ``plan_mixed`` of 400 replicated streams.
-   Every plan must pass ``validate``. One ``{"manager": ...}`` line with
-   the plans' summaries and each step's host seconds, after the card's
-   name and power limit.
-11. The fleet simulator (``repro_torch.sim``, host only), with ``jax`` and
-   ``repro`` absent from ``sys.modules``: ``spot_heavy``, ``rush_hour`` and
-   ``roi_day`` at 108 streams and ``mega_city`` at 1,000, each a 24-hour
-   day of seed 0 under ``ReactivePolicy`` and ``RepairPolicy(
-   migration_budget=36, defrag_ratio=2.0)``, their ledger totals against
-   ``tests/test_golden_ledgers.py``'s goldens (exact on the rounded
-   totals; the one day that table lacks, ``mega_city`` under REPAIR,
-   against totals derived from the reference); ``mega_city`` at its
-   published 10,000 streams on the columnar path against totals derived
-   from the reference; the host ms of each ``policy.decide`` over the
-   ``rush_hour`` REPAIR and ``spot_heavy`` reactive days (p50, max); a
-   ``rush_hour`` day capped by ``ServiceCalibration.from_engine`` over
-   phase 6's olmo-1b engine (every tick within the sum of its streams'
-   frame-rate caps, no more frames than the uncalibrated day) and the
-   calibration's rates planned on the H100 catalog. A card line, then one
-   ``{"sim": ...}`` line with each day's totals, the comparisons and the
-   host seconds.
-12. The observability loop (``repro_torch.obs``), with ``jax`` and
-   ``repro`` absent from ``sys.modules``. On the host: ``drifting_scene`` at
-   72 streams under ``RecalibratingPolicy`` (stale and online arms) and
-   ``regional_drift`` at 96 under the fleet-wide and the per-group policy
-   (the arms of the JAX package's ``benchmarks/drift_recalibration.py`` and
-   ``benchmarks/obs_export.py``), 24 h, seed 0: recalibration times,
-   recalibrated groups, fired groups, ledger totals, hub points and root
-   spans against the reference's (``OBS_EXPECTED``); the per-group arm's
-   JSONL and Chrome-trace exports read back equal; the telemetry overhead
-   on a ``mega_city`` day of 10,000 streams, interleaved min-of-3, printed
-   beside the reference's 5% bar (not a gate). On the card: two
-   continuous-batching engines on one set of full-width fp32 olmo-1b
-   weights, the kernels on, one per region (us-east-1: 4 ``nyc`` cameras;
-   ap-northeast-1: 4 ``tokyo`` ones) at 2 frames/s, profiled, then 10
+10. No phase: the host-only port of the resource manager, the simulator's
+   golden days and the observability benchmarks need no card, and the
+   tier-1 tests hold them to the reference bit for bit, also with ``jax``
+   and ``repro`` blocked (``tests/test_torch_manager.py``,
+   ``tests/test_torch_golden_ledgers.py``, ``tests/test_torch_obs*.py``,
+   ``tests/test_torch_imports.py``).
+11. The fleet simulator (``repro_torch.sim``) with ``jax`` and ``repro``
+   absent from ``sys.modules``: a ``rush_hour`` day of 108 streams capped
+   by ``ServiceCalibration.from_engine`` over phase 6's olmo-1b engine
+   (every tick within the sum of its streams' frame-rate caps, no more
+   frames than the uncalibrated day) and the calibration's rates planned
+   on the H100 catalog. A card line, then one ``{"sim": ...}`` line.
+12. The observability loop (``repro_torch.obs``) on the card, with ``jax``
+   and ``repro`` absent from ``sys.modules``: two continuous-batching
+   engines on one set of full-width fp32 olmo-1b weights, the kernels on,
+   one per region (us-east-1: 4 ``nyc`` cameras; ap-northeast-1: 4
+   ``tokyo`` ones) at 2 frames/s, profiled, then 10
    windows in which each region's cameras enqueue 16 s of frames (a frame
    each, every half second), its engine drains and a
    ``RegionalRecalibratingPolicy`` over REPAIR decides, with
@@ -305,10 +278,10 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path[:0] = [os.path.join(ROOT, "src"), os.path.join(ROOT, "portbench")]
+from metrics import counts as pb_counts  # noqa: E402  (portbench's)
+from metrics import peaks as pb_peaks  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM datasheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # non-tensor fp32; bf16
 FP32_TOL, BF16_TOL = 1e-4, 2e-2
 LOGIT_TOL = 1e-3                # fp32 logits of unit scale after 16-64 layers
 # bf16 logits after 48 layers, abs + rel: a loose sanity bound; the first
@@ -458,216 +431,15 @@ GRAD_REL_TOL = 1e-3
 VGG_HW = 224                    # the canonical VGG16/ZF frame size
 YI_WINDOW = 128                 # window_override of yi-9b's long-prompt check
 YI_WINDOW_PROMPT = 300
-# phase 10, the paper's resource manager. Fig. 3's nine cells (the table of
-# tests/test_fig3.py): (scenario, strategy) -> ($/hour, non-GPU instances,
-# GPU instances); None is the paper's Fail
-FIG3_EXPECTED = {
-    (1, "ST1"): (1.676, 4, 0), (1, "ST2"): (0.650, 0, 1),
-    (1, "ST3"): (0.650, 0, 1), (2, "ST1"): (0.419, 1, 0),
-    (2, "ST2"): (0.650, 0, 1), (2, "ST3"): (0.419, 1, 0),
-    (3, "ST1"): None, (3, "ST2"): (7.150, 0, 11), (3, "ST3"): (6.919, 1, 10),
-}
-# ST3's saving in each scenario against its baseline, whole percent
-FIG3_SAVINGS = {1: ("ST1", 61), 2: ("ST2", 36), 3: ("ST2", 3)}
-FIG6_FPS = (0.2, 1.0, 2.0, 5.0, 10.0, 20.0)      # tests/test_fig6.py's rates
-# Table I of the paper: type, capacity (cores, GiB, GPUs, GPU GiB), $/hour
-# by location, has_gpu
-TABLE1 = (
-    ("c4.2xlarge", (8.0, 15.0, 0.0, 0.0),
-     {"virginia": 0.398, "london": 0.476, "singapore": 0.462}, False),
-    ("c4.8xlarge", (36.0, 60.0, 0.0, 0.0),
-     {"virginia": 1.591, "london": 1.902, "singapore": 1.848}, False),
-    ("g3.8xlarge", (32.0, 244.0, 2.0, 16.0),
-     {"virginia": 2.280, "singapore": 3.340}, True),
-    ("D8v3", (8.0, 32.0, 0.0, 0.0),
-     {"us-east": 0.384, "west-europe": 0.480, "east-asia": 0.625}, False),
-    ("NC24r", (24.0, 224.0, 4.0, 48.0),
-     {"us-east": 3.960, "west-europe": 5.132}, True),
-)
-# Fig. 3's scenarios planned by ST3 over Table I's catalog
-TABLE1_ST3 = {1: (1.536, 4, 0), 2: (0.384, 1, 0), 3: (6.24, 0, 2)}
-# the 48-hour rush-hour trace of AdaptiveManager over four ZF cameras (the
-# demand of tests/test_adaptive.py): each hour's action (r replan, k keep,
-# f forced replan), the trace's total $ and its migrations, by strategy
-RUSH_HOUR = {
-    "ST3": ("rkkkkkkffkrrkkkkffkrrkkkkkkkkkkffkrrkkkkffkrrkkk",
-            44.608000000000004, 56),
-    "REPAIR": ("rkkkkkkffkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkkk", 108.233, 6),
-}
-MANAGER_FLEET = 400             # streams of the REPAIR replan and plan_mixed
-MANAGER_SEED = 0
-# phase 11, the fleet simulator, in tests/test_golden_ledgers.py's
-# configuration: 108 streams (mega_city 1,000), 24 h, seed 0, REPAIR with a
-# 36-move budget and a 2.0 defrag ratio
+# phase 11: a rush_hour day of 108 streams, 24 h, seed 0 (the golden
+# days' configuration), capped by the rates phase 6 measured
 SIM_STREAMS, SIM_HOURS, SIM_SEED = 108, 24.0, 0
-SIM_N_OVERRIDE = {"mega_city": 1000}
-SIM_DAYS = ("spot_heavy", "rush_hour", "roi_day", "mega_city")
-SIM_POLICIES = ("reactive", "repair")
-# tests/test_golden_ledgers.py's GOLDEN and GOLDEN_HOURS, copied (a tier-1
-# test holds the copies equal to that file's tables)
-SIM_GOLDEN = {
-    ("spot_heavy", "reactive"): {
-        "ticks": 24, "total_cost": 224.922253,
-        "frames_demanded": 11349752.4, "frames_analyzed": 10327841.223973,
-        "frames_dropped": 1021911.176027, "slo_attainment": 0.909962,
-        "migrations": 1588, "preemptions": 67, "defrags": 0},
-    ("spot_heavy", "repair"): {
-        "ticks": 24, "total_cost": 216.247657,
-        "frames_demanded": 11349752.4, "frames_analyzed": 10388353.893343,
-        "frames_dropped": 961398.506657, "slo_attainment": 0.915293,
-        "migrations": 584, "preemptions": 31, "defrags": 0},
-    ("rush_hour", "reactive"): {
-        "ticks": 24, "total_cost": 440.07255,
-        "frames_demanded": 11349752.4, "frames_analyzed": 11093271.66,
-        "frames_dropped": 256480.74, "slo_attainment": 0.977402,
-        "migrations": 1411, "preemptions": 0, "defrags": 0},
-    ("rush_hour", "repair"): {
-        "ticks": 24, "total_cost": 407.8672,
-        "frames_demanded": 11349752.4, "frames_analyzed": 11187993.06,
-        "frames_dropped": 161759.34, "slo_attainment": 0.985748,
-        "migrations": 408, "preemptions": 0, "defrags": 0},
-    ("roi_day", "reactive"): {
-        "ticks": 24, "total_cost": 671.6444,
-        "frames_demanded": 21641904.0, "frames_analyzed": 21405161.7,
-        "frames_dropped": 236742.3, "slo_attainment": 0.989061,
-        "migrations": 1905, "preemptions": 0, "defrags": 0,
-        "stage_items_peak": 252, "pooled_items_peak": 0},
-    ("roi_day", "repair"): {
-        "ticks": 24, "total_cost": 728.8338,
-        "frames_demanded": 21641904.0, "frames_analyzed": 21590226.9,
-        "frames_dropped": 51677.1, "slo_attainment": 0.997612,
-        "migrations": 25, "preemptions": 0, "defrags": 0,
-        "stage_items_peak": 252, "pooled_items_peak": 0},
-    ("mega_city", "reactive"): {
-        "ticks": 24, "total_cost": 2606.7518,
-        "frames_demanded": 62381354.4, "frames_analyzed": 61384287.24,
-        "frames_dropped": 997067.16, "slo_attainment": 0.984017,
-        "migrations": 14582, "preemptions": 0, "defrags": 0,
-        "stage_items_peak": 0, "pooled_items_peak": 0},
-}
-SIM_GOLDEN_HOURS = {
-    ("spot_heavy", "repair"): {
-        "ap-south-1/g3.8xlarge/spot": 13.811112,
-        "us-east-1/c4.2xlarge/ondemand": 1.05,
-        "us-east-1/g2.2xlarge/ondemand": 22.35,
-        "us-east-1/g2.2xlarge/spot": 87.938125,
-        "us-east-1/g3.8xlarge/ondemand": 20.05,
-        "us-east-1/g3.8xlarge/spot": 96.885748},
-    ("rush_hour", "repair"): {
-        "ap-south-1/g3.8xlarge/ondemand": 14.05,
-        "us-east-1/c4.2xlarge/ondemand": 1.05,
-        "us-east-1/g2.2xlarge/ondemand": 119.7,
-        "us-east-1/g3.8xlarge/ondemand": 126.55},
-    ("roi_day", "repair"): {
-        "us-east-1/c4.2xlarge/ondemand": 75.1,
-        "us-east-1/c4.8xlarge/ondemand": 24.0,
-        "us-east-1/g2.2xlarge/ondemand": 764.0,
-        "us-east-1/g3.8xlarge/ondemand": 72.0},
-}
-# the days the golden table lacks, (scenario, policy, streams): their totals
-# (all but instance_hours) from the reference on the columnar path; the
-# 1,000-stream row is rerun in tests/test_torch_golden_ledgers.py. Regenerate:
-#   PYTHONPATH=src python - <<'EOF'
-#   from repro.core.manager import ResourceManager
-#   from repro.sim import FleetSimulator, ReactivePolicy, RepairPolicy, SCENARIOS
-#   for label, n in (("repair", 1000), ("reactive", 10000)):
-#       sc = SCENARIOS["mega_city"](n_streams=n, duration_h=24.0, seed=0)
-#       cat = sc.catalog()
-#       pol = (ReactivePolicy(ResourceManager(cat)) if label == "reactive"
-#              else RepairPolicy(ResourceManager(cat), migration_budget=36,
-#                                defrag_ratio=2.0))
-#       tot = FleetSimulator(sc.demand, pol, cat, sc.config,
-#                            columnar=True).run().totals()
-#       tot.pop("instance_hours")
-#       print(label, n, tot)
-#   EOF
-SIM_DERIVED = {
-    ("mega_city", "repair", 1000): {
-        "ticks": 24, "total_cost": 3059.7751, "cost_ondemand": 3059.7751,
-        "cost_spot": 0.0, "frames_demanded": 62381354.4,
-        "frames_analyzed": 61782912.9, "frames_dropped": 598441.5,
-        "slo_attainment": 0.990407, "migrations": 2509, "preemptions": 0,
-        "outbids": 0, "defrags": 1, "recalibrations": 0,
-        "calib_max_rel_error": 0.0, "stage_items_peak": 0,
-        "pooled_items_peak": 0, "preboots": 0, "forecast_max_rel_error": 0.0},
-    ("mega_city", "reactive", 10000): {
-        "ticks": 24, "total_cost": 25922.35905, "cost_ondemand": 25922.35905,
-        "cost_spot": 0.0, "frames_demanded": 623414354.400003,
-        "frames_analyzed": 613255705.560004, "frames_dropped": 10158648.839999,
-        "slo_attainment": 0.983705, "migrations": 146788, "preemptions": 0,
-        "outbids": 0, "defrags": 0, "recalibrations": 0,
-        "calib_max_rel_error": 0.0, "stage_items_peak": 0,
-        "pooled_items_peak": 0, "preboots": 0, "forecast_max_rel_error": 0.0},
-}
-SIM_MEGA_CITY = 10_000          # mega_city's published size (its default)
-# the days whose policy.decide is timed call by call
-SIM_TIMED = (("rush_hour", "repair"), ("spot_heavy", "reactive"))
 SIM_CALIBRATED_ARCH = "olmo-1b"  # phase 6's engine whose rates cap a day
-# phase 12, the observability loop. The host part runs the two benchmarks of
-# the JAX package's obs layer on the port: drifting_scene at 72 streams with
-# drift_recalibration.py's arms (stale, online) and regional_drift at 96 with
-# obs_export.py's (fleet-wide, per-group), 24 h, seed 0, REPAIR with a
-# defrag ratio of 1.25 and a budget of N // 3 (drifting_scene) or N // 8
-OBS_HOURS, OBS_SEED = 24.0, 0
-OBS_DRIFT_STREAMS, OBS_REGIONAL_STREAMS = 72, 96
+# phase 12, the observability loop on the card: two regions, each one
+# olmo-1b engine serving its cameras at 2 frames/s (32-token prompts, 8 new
+# tokens, as phase 6); at window OBS_STEP_AT the drifted region's load steps
+# from 4 to 16 cameras
 OBS_DRIFTED_REGION = "ap-northeast-1"
-# what the reference gives for each arm (a tier-1 test holds the copies equal
-# to a fresh run of the reference): recalibration times, hub points, root
-# spans, the ledger's totals() and, per group, the recalibrated groups
-_OBS_ZEROS = {"cost_spot": 0.0, "preemptions": 0, "outbids": 0,
-              "stage_items_peak": 0, "pooled_items_peak": 0, "preboots": 0,
-              "forecast_max_rel_error": 0.0, "ticks": 24}
-OBS_EXPECTED = {
-    ("drifting_scene", "stale"): {
-        "recalibrations": (), "points": 386, "spans": 24, "totals": {
-            **_OBS_ZEROS, "total_cost": 253.5121, "cost_ondemand": 253.5121,
-            "frames_demanded": 7566501.6, "frames_analyzed": 5943352.86,
-            "frames_dropped": 1623148.74, "slo_attainment": 0.785482,
-            "migrations": 347, "defrags": 2, "recalibrations": 0,
-            "calib_max_rel_error": 0.65, "instance_hours": {
-                "ap-south-1/g3.8xlarge/ondemand": 3.05,
-                "us-east-1/c4.2xlarge/ondemand": 3.1,
-                "us-east-1/g2.2xlarge/ondemand": 82.2,
-                "us-east-1/g3.8xlarge/ondemand": 83.3}}},
-    ("drifting_scene", "online"): {
-        "recalibrations": (14.0,), "points": 395, "spans": 24, "totals": {
-            **_OBS_ZEROS, "total_cost": 219.0296, "cost_ondemand": 219.0296,
-            "frames_demanded": 7566501.6, "frames_analyzed": 5934554.28,
-            "frames_dropped": 1631947.32, "slo_attainment": 0.784319,
-            "migrations": 331, "defrags": 2, "recalibrations": 1,
-            "calib_max_rel_error": 0.65, "instance_hours": {
-                "ap-south-1/g3.8xlarge/ondemand": 3.05,
-                "us-east-1/c4.2xlarge/ondemand": 3.1,
-                "us-east-1/g2.2xlarge/ondemand": 120.35,
-                "us-east-1/g3.8xlarge/ondemand": 57.3}}},
-    ("regional_drift", "fleet-wide"): {
-        "recalibrations": (15.0,), "points": 354, "spans": 24, "totals": {
-            **_OBS_ZEROS, "total_cost": 886.695, "cost_ondemand": 886.695,
-            "frames_demanded": 40435200.0, "frames_analyzed": 35464176.0,
-            "frames_dropped": 4971024.0, "slo_attainment": 0.877062,
-            "migrations": 12, "defrags": 0, "recalibrations": 1,
-            "calib_max_rel_error": 0.266667, "instance_hours": {
-                "us-east-1/g2.2xlarge/ondemand": 522.3,
-                "us-east-1/g3.8xlarge/ondemand": 96.0,
-                "us-west-2/g3.8xlarge/ondemand": 144.0}}},
-    ("regional_drift", "per-group"): {
-        "recalibrations": (15.0,), "points": 470, "spans": 24,
-        "recal_groups": ((15.0, (OBS_DRIFTED_REGION,)),),
-        "fired_groups": (OBS_DRIFTED_REGION,), "totals": {
-            **_OBS_ZEROS, "total_cost": 880.788, "cost_ondemand": 880.788,
-            "frames_demanded": 40435200.0, "frames_analyzed": 35464176.0,
-            "frames_dropped": 4971024.0, "slo_attainment": 0.877062,
-            "migrations": 8, "defrags": 0, "recalibrations": 1,
-            "calib_max_rel_error": 0.266667, "instance_hours": {
-                "us-east-1/g2.2xlarge/ondemand": 576.0,
-                "us-east-1/g3.8xlarge/ondemand": 96.0,
-                "us-west-2/g3.8xlarge/ondemand": 126.1}}},
-}
-OBS_OVERHEAD_STREAMS = 10_000   # mega_city's published size, 24 h
-OBS_MAX_OVERHEAD = 0.05         # the reference's bar (not a gate here)
-# the card part: two regions, each one olmo-1b engine serving its cameras
-# at 2 frames/s (32-token prompts, 8 new tokens, as phase 6); at window
-# OBS_STEP_AT the drifted region's load steps from 4 to 16 cameras
 OBS_REGIONS = (("us-east-1", "nyc"), (OBS_DRIFTED_REGION, "tokyo"))
 OBS_CAMERAS, OBS_LOADED_CAMERAS, OBS_FPS = 4, 16, 2.0
 # seconds of frames a window enqueues: a healthy window's drain varies by
@@ -779,66 +551,31 @@ def device_ms(torch, fn, kernel: str, calls: int = 50) -> tuple[float, dict]:
 
 
 def _bound(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """portbench's ``counts.bound_s`` in ms, and which of the two binds."""
+    t = pb_counts.bound_s(flops, nbytes, dtype_name)
+    return t * 1e3, ("bytes" if t == nbytes / pb_peaks.HBM_BYTES_PER_S
+                     else "operations")
 
 
 def attention_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
-    """Least time for one attention call: each input read once and the
-    output written once at the HBM rate, against the multiply-adds of the
-    visible (query, key) pairs of these inputs at the dtype's peak rate."""
+    """Least time for one attention call (``counts.attention_fwd``)."""
     B, S, H, hd, K, T, causal, window = shape
-    esize = 4 if dtype_name == "float32" else 2
-    nbytes = esize * (2 * B * S * H * hd + 2 * B * T * K * hd)
-    flops = 4.0 * hd * B * H * _visible_pairs(S, T, causal, window)
-    return _bound(nbytes, flops, dtype_name)       # q·k and p·v
-
-
-def _visible_pairs(S: int, T: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the mask keeps; queries are the last S of T."""
-    q_pos = np.arange(S)[:, None] + (T - S)
-    t = np.arange(T)[None, :]
-    vis = np.ones((S, T), bool)
-    if causal:
-        vis &= t <= q_pos
-    if window > 0:
-        vis &= t > q_pos - window
-    return int(vis.sum())
+    flops, nbytes = pb_counts.attention_fwd(B, S, H, hd, K, T, causal,
+                                            window, dtype_name)
+    return _bound(nbytes, flops, dtype_name)
 
 
 def attention_bwd_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
-    """Least time for one flash backward: q, k, v, o, dO and lse read once
-    and dq, dk, dv written once at the HBM rate, against its five products
-    (S = q·kᵀ again, dP = dO·vᵀ, dV = Pᵀ·dO, dQ = dS·k, dK = dSᵀ·q), 10·hd
-    flops for each visible (query, key) pair, at the dtype's peak rate."""
-    B, S, H, hd, K, causal, window = shape
-    esize = 4 if dtype_name == "float32" else 2
-    nbytes = esize * (4 * B * S * H * hd + 4 * B * S * K * hd) + 4 * B * H * S
-    flops = 10.0 * hd * B * H * _visible_pairs(S, S, causal, window)
+    """Least time for one flash backward (``counts.attention_bwd``)."""
+    flops, nbytes = pb_counts.attention_bwd(*shape, dtype_name)
     return _bound(nbytes, flops, dtype_name)
 
 
 def ssd_bound_ms(shape, dtype_name: str) -> tuple[float, str]:
-    """Least time for one SSD scan: x, B, C, dt and A read once and y
-    written once at the HBM rate, against the multiply-adds the function
-    needs at the fp32 rate outside the tensor cores (the kernel's
-    arithmetic is fp32). Per chunk of Lc positions: C·Bᵀ over the
-    Lc(Lc+1)/2 pairs j <= i once per (batch, group), since the h/g heads of
-    a group share it; scores·x over the same pairs per (batch, head); and
-    per (batch, head) C·state (Lc·n·p) after the first chunk and the state
-    update (Lc·n·p) before the last."""
-    b, s, h, p, g, n, L = shape
-    esize = 4 if dtype_name == "float32" else 2
-    nbytes = esize * (2 * b * s * h * p + 2 * b * s * g * n) + 4 * (b * s * h
-                                                                   + h)
-    chunks = [min(L, s - c) for c in range(0, s, L)]
-    macs = 0
-    for i, lc in enumerate(chunks):
-        pairs = lc * (lc + 1) // 2
-        macs += b * g * pairs * n + b * h * pairs * p
-        macs += b * h * lc * n * p * ((i > 0) + (i < len(chunks) - 1))
-    return _bound(nbytes, 2.0 * macs, "float32")
+    """Least time for one SSD scan (``counts.ssd_scan``); its arithmetic is
+    fp32 whatever the inputs' type."""
+    flops, nbytes = pb_counts.ssd_scan(*shape, dtype_name)
+    return _bound(nbytes, flops, "float32")
 
 
 def _within(got, want, tol: float) -> bool:
@@ -2518,230 +2255,6 @@ def check_refusals(torch, wrappers: dict) -> None:
     print("ssd_scan, rglru_scan and rglru_gated_scan refuse grad on the card")
 
 
-def rush_hour_fps(t: int) -> float:
-    """Demand profile: quiet nights (0.2 fps), rush-hour peaks (6 fps)."""
-    if t % 24 in (8, 9, 17, 18):
-        return 6.0
-    if t % 24 in (7, 10, 16, 19):
-        return 2.0
-    return 0.2
-
-
-def _manager_fleet(core, geo, rng, n: int, replicas: int = 1,
-                   tag: str = "") -> list:
-    """``n`` seeded camera streams (a quarter VGG16, the rest ZF) over the
-    Fig. 6 cameras; with ``replicas`` > 1, groups of ``cam#k`` replicas."""
-    cams = tuple(sorted(geo.CAMERAS))
-    out = []
-    for i in range(n // replicas):
-        cam = cams[int(rng.integers(0, len(cams)))]
-        prog = "VGG16" if rng.random() < 0.25 else "ZF"
-        hi = 1.5 if prog == "VGG16" else 6.0
-        fps = round(float(rng.uniform(0.1, hi)) / replicas, 3)
-        for k in range(replicas):
-            sid = f"{prog.lower()}-{tag}{i}" + (f"#{k}" if replicas > 1 else "")
-            out.append(core.Stream(sid, core.PROGRAMS[prog], fps, camera=cam))
-    return out
-
-
-def check_manager() -> dict:
-    """Phase 10: the paper's resource manager on this machine, from
-    ``repro_torch.core`` alone (host only). Returns the report of the
-    ``{"manager": ...}`` line; any mismatch is fatal."""
-    _no_reference_loaded("manager")
-    import dataclasses
-
-    from repro_torch import core
-    from repro_torch.core import geo
-
-    host_s: dict = {}
-    report: dict = {"host_s": host_s}
-
-    def timed(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        host_s[name] = time.perf_counter() - t0
-        return out
-
-    def valid(plan, what):
-        try:
-            core.validate(plan.problem, plan.solution)
-        except AssertionError as e:
-            fail(f"{what}: the plan fails validate: {e}")
-
-    def cell(summary):
-        return (round(summary["hourly_cost"], 3),
-                summary["non_gpu_instances"], summary["gpu_instances"])
-
-    # Fig. 3: nine cells, the savings and the headline
-    mgr = core.ResourceManager(core.fig3_catalog())
-
-    def fig3():
-        plans = {}
-        for (sc, strat) in FIG3_EXPECTED:
-            plans[(sc, strat)] = mgr.plan_or_fail(
-                core.make_streams(core.FIG3_SCENARIOS[sc]), strat)
-        return plans
-
-    plans = timed("fig3", fig3)
-    fig3_report = {}
-    for key, want in FIG3_EXPECTED.items():
-        plan = plans[key]
-        name = f"{key[1]} scenario {key[0]}"
-        if want is None:
-            if plan is not None:
-                fail(f"Fig. 3 {name}: planned {plan.summary()}, want Fail")
-            fig3_report[name] = "Fail"
-            continue
-        if plan is None:
-            fail(f"Fig. 3 {name}: Fail, want {want}")
-        valid(plan, f"Fig. 3 {name}")
-        s = plan.summary()
-        if cell(s) != want or not s["optimal"]:
-            fail(f"Fig. 3 {name}: {s}, want {want} and optimal")
-        fig3_report[name] = s
-    savings = {}
-    for sc, (base, pct) in FIG3_SAVINGS.items():
-        saving = 1 - (plans[(sc, "ST3")].hourly_cost
-                      / plans[(sc, base)].hourly_cost)
-        if round(100 * saving) != pct:
-            fail(f"Fig. 3 scenario {sc}: ST3 saves {100 * saving:.2f}% "
-                 f"against {base}, want {pct}%")
-        savings[f"scenario {sc} ST3 vs {base}"] = saving
-    if savings["scenario 1 ST3 vs ST1"] <= 0.50:
-        fail("Fig. 3: the >50% headline does not hold")
-    report["fig3"] = fig3_report
-    report["fig3_savings"] = savings
-
-    # Fig. 6: NL, ARMVAC (and ARMVAC+) and GCL over the twelve cameras
-    mgr6 = core.ResourceManager(core.fig6_catalog())
-    cams = [core.Stream(f"zf-{c}", core.PROGRAMS["ZF"], fps=1.0, camera=c)
-            for c in geo.CAMERAS]
-
-    def fig6():
-        return {fps: {name: mgr6.plan(cams, name, target_fps=fps)
-                      for name in ("NL", "ARMVAC", "ARMVAC+", "GCL")}
-                for fps in FIG6_FPS}
-
-    fig6_plans = timed("fig6", fig6)
-    fig6_report = {}
-    best_vs_nl = best_vs_armvac = 0.0
-    for fps, by_name in fig6_plans.items():
-        for name, plan in by_name.items():
-            valid(plan, f"Fig. 6 {name} at {fps} fps")
-        cost = {n: p.hourly_cost for n, p in by_name.items()}
-        if not by_name["GCL"].solution.optimal:
-            fail(f"Fig. 6 GCL at {fps} fps: not proven optimal")
-        if cost["GCL"] > min(cost["NL"], cost["ARMVAC"]) + 1e-9:
-            fail(f"Fig. 6 at {fps} fps: GCL is not the cheapest: {cost}")
-        best_vs_nl = max(best_vs_nl, 1 - cost["GCL"] / cost["NL"])
-        if 1.0 <= fps <= 20.0:
-            best_vs_armvac = max(best_vs_armvac,
-                                 1 - cost["GCL"] / cost["ARMVAC"])
-        fig6_report[str(fps)] = cost
-    if best_vs_nl < 0.50 or best_vs_armvac < 0.31:
-        fail(f"Fig. 6: GCL saves {best_vs_nl:.3f} vs NL (want >= 0.50) "
-             f"and {best_vs_armvac:.3f} vs ARMVAC (want >= 0.31)")
-    report["fig6"] = fig6_report
-    report["fig6_gcl_savings"] = {"vs NL": best_vs_nl,
-                                  "vs ARMVAC 1-20 fps": best_vs_armvac}
-
-    # Table I: the catalog field for field, and Fig. 3's scenarios on it
-    table1 = core.table1_catalog()
-    got = tuple((t.name, t.capacity, dict(t.prices), t.has_gpu)
-                for t in table1.types)
-    if got != TABLE1:
-        fail(f"Table I catalog: {got}")
-    mgr1 = core.ResourceManager(table1)
-    t1_plans = timed("table1", lambda: {
-        sc: mgr1.plan(core.make_streams(core.FIG3_SCENARIOS[sc]), "ST3")
-        for sc in TABLE1_ST3})
-    for sc, plan in t1_plans.items():
-        valid(plan, f"Table I scenario {sc}")
-        if cell(plan.summary()) != TABLE1_ST3[sc]:
-            fail(f"Table I scenario {sc}: {plan.summary()}, "
-                 f"want {TABLE1_ST3[sc]}")
-    report["table1"] = {f"ST3 scenario {sc}": p.summary()
-                        for sc, p in t1_plans.items()}
-
-    # the adaptive manager over the 48-hour rush-hour trace
-    letter = {"replan": "r", "keep": "k", "forced-replan": "f"}
-    adaptive = {}
-    for strat, (kinds, total, migrations) in RUSH_HOUR.items():
-        am = core.AdaptiveManager(core.ResourceManager(core.fig3_catalog()),
-                                  strategy=strat)
-
-        def trace():
-            applied = 0.0
-            for t in range(48):
-                streams = [core.Stream(f"cam{i}", core.PROGRAMS["ZF"],
-                                       fps=rush_hour_fps(t))
-                           for i in range(4)]
-                applied += am.step(t, streams).hourly_cost
-            return applied
-
-        applied = timed(f"rush_hour {strat}", trace)
-        got = "".join(letter[e.action] for e in am.events)
-        valid(am.current, f"rush hour {strat}")
-        if got != kinds or am.total_migrations() != migrations:
-            fail(f"rush hour {strat}: actions {got}, migrations "
-                 f"{am.total_migrations()}; want {kinds}, {migrations}")
-        if am.total_cost() != total or \
-                abs(am.total_cost() - applied) > 1e-9 * total:
-            fail(f"rush hour {strat}: total {am.total_cost()!r} (the "
-                 f"applied plans sum to {applied!r}), want {total!r}")
-        adaptive[strat] = {"actions": got, "total_cost": am.total_cost(),
-                           "migrations": am.total_migrations(),
-                           "defrags": am.defrags()}
-    report["rush_hour"] = adaptive
-
-    # a REPAIR replan of a drifted fleet, and a mixed on-demand/spot plan
-    import numpy as np
-    rng = np.random.default_rng(MANAGER_SEED)
-    fleet = _manager_fleet(core, geo, rng, MANAGER_FLEET)
-    first = timed("repair fresh", lambda: mgr6.plan(fleet, "REPAIR"))
-    drifted = [dataclasses.replace(s, fps=round(min(s.fps * 1.5, 6.0), 3))
-               if rng.random() < 0.3 else s
-               for s in fleet if rng.random() > 0.1]
-    drifted += _manager_fleet(core, geo, rng, 20, tag="new")
-    repaired = timed("repair replan", lambda: mgr6.plan(
-        drifted, "REPAIR", previous=first))
-    fresh = mgr6.plan(drifted, "FFD")
-    for what, plan in (("REPAIR fresh", first), ("REPAIR replan", repaired),
-                       ("FFD", fresh)):
-        valid(plan, what)
-    moved = core.count_plan_migrations(first, repaired)
-    if moved > core.count_plan_migrations(first, fresh):
-        fail(f"REPAIR moved {moved} streams, more than a fresh FFD would")
-    report["repair"] = {"streams": len(drifted), "migrations": moved,
-                        "ffd_migrations": core.count_plan_migrations(
-                            first, fresh),
-                        "hourly_cost": repaired.hourly_cost,
-                        "ffd_hourly_cost": fresh.hourly_cost,
-                        "instances": sum(repaired.instance_counts().values())}
-
-    replicated = _manager_fleet(core, geo, rng, MANAGER_FLEET, replicas=2)
-    mult = {r: round(float(rng.uniform(0.2, 0.9)), 4)
-            for r in mgr6.catalog.locations}
-    mixed = timed("plan_mixed", lambda: mgr6.plan_mixed(replicated, mult))
-    valid(mixed.plan, "plan_mixed")
-    if core.spot_affinity_violations(mixed.plan):
-        fail("plan_mixed: replicas share a spot market")
-    if mixed.plan.hourly_cost > mixed.ondemand_cost + 1e-9:
-        fail("plan_mixed costs more than the on-demand-only plan")
-    spot = sum(1 for b in mixed.plan.solution.bins
-               if mixed.plan.problem.choices[b.choice].market == "spot")
-    report["mixed"] = {"streams": len(replicated),
-                       "hourly_cost": mixed.plan.hourly_cost,
-                       "ondemand_cost": mixed.ondemand_cost,
-                       "spot_instances": spot,
-                       "instances": len(mixed.plan.solution.bins)}
-    print(f"the paper's resource manager: Fig. 3, Fig. 6, Table I, the "
-          f"rush-hour trace, REPAIR and plan_mixed agree "
-          f"({sum(host_s.values()):.3f} s on the host)")
-    return report
-
-
 def _no_reference_loaded(phase: str) -> None:
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "repro")
@@ -2750,90 +2263,20 @@ def _no_reference_loaded(phase: str) -> None:
         fail(f"the {phase} phase found reference modules loaded: {leaked}")
 
 
-def _sim_day(name: str, label: str, n: int, decide_ms=None, **kw):
-    """One 24-hour day of seed 0: (the simulator, its ledger, host s). With
-    ``decide_ms`` a list, the host ms of each ``policy.decide`` call is
-    appended to it."""
+def _sim_day(**kw):
+    """A 24-hour ``rush_hour`` day of ``SIM_STREAMS`` streams, seed
+    ``SIM_SEED``, under ``ReactivePolicy``: (the simulator, its ledger, host
+    s)."""
     from repro_torch.core import ResourceManager
-    from repro_torch.sim import (SCENARIOS, FleetSimulator, ReactivePolicy,
-                                 RepairPolicy)
-    sc = SCENARIOS[name](n_streams=n, duration_h=SIM_HOURS, seed=SIM_SEED)
+    from repro_torch.sim import SCENARIOS, FleetSimulator, ReactivePolicy
+    sc = SCENARIOS["rush_hour"](n_streams=SIM_STREAMS, duration_h=SIM_HOURS,
+                                seed=SIM_SEED)
     cat = sc.catalog()
-    if label == "reactive":
-        policy = ReactivePolicy(ResourceManager(cat))
-    else:
-        policy = RepairPolicy(ResourceManager(cat), defrag_ratio=2.0,
-                              migration_budget=SIM_STREAMS // 3)
-    if decide_ms is not None:
-        decide = policy.decide
-
-        def timed(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = decide(*args, **kwargs)
-            decide_ms.append(1e3 * (time.perf_counter() - t0))
-            return out
-
-        policy.decide = timed
-    sim = FleetSimulator(sc.demand, policy, cat, sc.config, **kw)
+    sim = FleetSimulator(sc.demand, ReactivePolicy(ResourceManager(cat)), cat,
+                         sc.config, **kw)
     t0 = time.perf_counter()
     ledger = sim.run()
     return sim, ledger, time.perf_counter() - t0
-
-
-def _sim_compare(day: str, got: dict, want: dict, hours=None) -> None:
-    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
-    if hours is not None and got["instance_hours"] != hours:
-        bad["instance_hours"] = (got["instance_hours"], hours)
-    if bad:
-        fail(f"{day}: totals differ (got, want): {bad}")
-
-
-def check_sim(full: bool = True) -> dict:
-    """Phase 11, host only: the golden days, the published-size day and the
-    replan latency over repeated decisions. ``full=False`` keeps the
-    108-stream days only (no ``mega_city``). Returns the ``{"sim": ...}``
-    report; any mismatch is fatal."""
-    import statistics
-    _no_reference_loaded("simulator")
-    totals, compared, host_s, decide_ms = {}, {}, {}, {}
-    for name in SIM_DAYS:
-        n = SIM_N_OVERRIDE.get(name, SIM_STREAMS)
-        if not full and n != SIM_STREAMS:
-            continue
-        for label in SIM_POLICIES:
-            day = f"{name} {label} {n}"
-            timed = [] if (name, label) in SIM_TIMED else None
-            _, ledger, host_s[day] = _sim_day(name, label, n, timed)
-            if timed is not None:
-                decide_ms[day] = timed
-            totals[day] = ledger.totals()
-            if (name, label) in SIM_GOLDEN:
-                _sim_compare(day, totals[day], SIM_GOLDEN[(name, label)],
-                             SIM_GOLDEN_HOURS.get((name, label)))
-                compared[day] = "golden, equal"
-            else:
-                _sim_compare(day, totals[day], SIM_DERIVED[(name, label, n)])
-                compared[day] = "derived from the reference, equal"
-    if full:
-        day = f"mega_city reactive {SIM_MEGA_CITY} columnar"
-        _, ledger, host_s[day] = _sim_day("mega_city", "reactive",
-                                          SIM_MEGA_CITY, columnar=True)
-        totals[day] = ledger.totals()
-        _sim_compare(day, totals[day],
-                     SIM_DERIVED[("mega_city", "reactive", SIM_MEGA_CITY)])
-        compared[day] = "derived from the reference, equal"
-        totals[day].pop("instance_hours")
-    decide = {day: {"decisions": len(ms), "p50_ms": statistics.median(ms),
-                    "max_ms": max(ms), "max_at_tick": ms.index(max(ms))}
-              for day, ms in decide_ms.items()}
-    for day, d in decide.items():
-        print(f"{day}: policy.decide {d['decisions']} times, p50 "
-              f"{d['p50_ms']:.3f} ms, max {d['max_ms']:.3f} ms (tick "
-              f"{d['max_at_tick']}) on the host")
-    print(f"the fleet simulator: {len(compared)} days equal their expected "
-          f"totals ({sum(host_s.values()):.3f} s on the host)")
-    return {"totals": totals, "compared": compared, "host_s": host_s,
-            "decide_ms": decide}
 
 
 def check_calibrated_day(calibration) -> dict:
@@ -2854,10 +2297,8 @@ def check_calibrated_day(calibration) -> dict:
           f"{calibration.tokens_per_frame}")
     if not calibration.rates_tokens_per_s:
         fail(f"{arch}: the engine measured no rates")
-    sim, ledger, host = _sim_day("rush_hour", "reactive", SIM_STREAMS,
-                                 calibration=calibration)
-    _, plain, _ = _sim_day("rush_hour", "reactive", SIM_STREAMS,
-                           columnar=False)
+    sim, ledger, host = _sim_day(calibration=calibration)
+    _, plain, _ = _sim_day(columnar=False)
     dt_s = sim.config.dt_h * 3600.0
     capped = 0
     for rec in ledger.records:
@@ -2890,65 +2331,6 @@ def check_calibrated_day(calibration) -> dict:
     return report
 
 
-def _obs_drift_arm(online: bool):
-    """``benchmarks/drift_recalibration.py``'s arm on the port:
-    ``drifting_scene`` under ``RecalibratingPolicy`` over REPAIR, the stale
-    arm with a detector that cannot fire. Returns (policy, ledger)."""
-    import math
-    from repro_torch.core import ResourceManager
-    from repro_torch.obs import (DriftConfig, DriftDetector,
-                                 RecalibratingPolicy, TelemetryHub, Tracer)
-    from repro_torch.sim import SCENARIOS, FleetSimulator, RepairPolicy
-    n = OBS_DRIFT_STREAMS
-    sc = SCENARIOS["drifting_scene"](n_streams=n, duration_h=OBS_HOURS,
-                                     seed=OBS_SEED)
-    cat = sc.catalog()
-    inner = RepairPolicy(ResourceManager(cat), migration_budget=n // 3,
-                         defrag_ratio=1.25)
-    cfg = DriftConfig() if online else DriftConfig(rel_threshold=math.inf)
-    policy = RecalibratingPolicy(inner, sc.service,
-                                 detector=DriftDetector(cfg),
-                                 telemetry=TelemetryHub(), tracer=Tracer())
-    ledger = FleetSimulator(sc.demand, policy, cat, sc.config,
-                            service=sc.service,
-                            telemetry=policy.telemetry).run()
-    return policy, ledger
-
-
-def _obs_regional_arm(regional: bool, jsonl_path=None):
-    """``benchmarks/obs_export.py``'s arm on the port: ``regional_drift``
-    under the fleet-wide ``RecalibratingPolicy`` over a windowed probe, or
-    under ``RegionalRecalibratingPolicy``. The hub writes JSONL to
-    ``jsonl_path`` when one is given. Returns (policy, ledger, hub,
-    aggregator)."""
-    from repro_torch.core import ResourceManager
-    from repro_torch.obs import (RecalibratingPolicy,
-                                 RegionalRecalibratingPolicy, Tracer,
-                                 WindowedServiceProbe, hub_with_exporters)
-    from repro_torch.sim import SCENARIOS, FleetSimulator, RepairPolicy
-    n = OBS_REGIONAL_STREAMS
-    sc = SCENARIOS["regional_drift"](n_streams=n, duration_h=OBS_HOURS,
-                                     seed=OBS_SEED)
-    cat = sc.catalog()
-    inner = RepairPolicy(ResourceManager(cat), migration_budget=n // 8,
-                         defrag_ratio=1.25)
-    hub, exporter, agg = hub_with_exporters(
-        jsonl_path, histograms=("replan.wall_ms", "fleet.slo"))
-    if regional:
-        policy = RegionalRecalibratingPolicy(
-            inner, sc.service, group_of=sc.groups.__getitem__,
-            telemetry=hub, tracer=Tracer())
-    else:
-        policy = RecalibratingPolicy(
-            inner, sc.service, probe=WindowedServiceProbe(sc.service),
-            telemetry=hub, tracer=Tracer())
-    ledger = FleetSimulator(sc.demand, policy, cat, sc.config,
-                            service=sc.service, telemetry=hub).run()
-    if exporter is not None:
-        exporter.close()
-    return policy, ledger, hub, agg
-
-
 def _spans_equal(a, b) -> bool:
     return (a.name == b.name and a.t == b.t and a.wall_ms == b.wall_ms
             and a.attrs == b.attrs and len(a.children) == len(b.children)
@@ -2973,109 +2355,6 @@ def _obs_round_trips(what: str, hub, tracer, jsonl_path: str,
         fail(f"{what}: the Chrome trace does not rebuild the span trees")
     return {"jsonl_points": len(loaded), "trace_spans": len(rebuilt),
             "trace_events": events}
-
-
-def _obs_summary(policy, ledger, points: int) -> dict:
-    out = {"recalibrations": tuple(policy.recalibrations), "points": points,
-           "spans": len(policy.tracer.spans), "totals": ledger.totals()}
-    if hasattr(policy, "recal_groups"):
-        out["recal_groups"] = tuple((t, tuple(g))
-                                    for t, g in policy.recal_groups)
-        out["fired_groups"] = policy.regional.fired_groups()
-    return out
-
-
-def obs_overhead() -> dict:
-    """``benchmarks/obs_export.py``'s overhead on the port: a ``mega_city``
-    day at 10,000 streams under ``ReactivePolicy`` with and without a hub,
-    JSONL exporter and aggregator attached, interleaved min-of-3 after one
-    warming run."""
-    import tempfile
-    from repro_torch.core import ResourceManager
-    from repro_torch.obs import hub_with_exporters
-    from repro_torch.sim import SCENARIOS, FleetSimulator, ReactivePolicy
-
-    def once(telemetry: bool) -> float:
-        sc = SCENARIOS["mega_city"](n_streams=OBS_OVERHEAD_STREAMS,
-                                    duration_h=OBS_HOURS, seed=OBS_SEED)
-        cat = sc.catalog()
-        policy = ReactivePolicy(ResourceManager(cat))
-        if not telemetry:
-            t0 = time.perf_counter()
-            FleetSimulator(sc.demand, policy, cat, sc.config).run()
-            return time.perf_counter() - t0
-        with tempfile.TemporaryDirectory() as tmp:
-            hub, exporter, _ = hub_with_exporters(
-                os.path.join(tmp, "mega.jsonl"))
-            t0 = time.perf_counter()
-            FleetSimulator(sc.demand, policy, cat, sc.config,
-                           telemetry=hub).run()
-            wall = time.perf_counter() - t0
-            exporter.close()
-        return wall
-
-    once(False)
-    samples = [(once(False), once(True)) for _ in range(3)]
-    t_off = min(s[0] for s in samples)
-    t_on = min(s[1] for s in samples)
-    return {"streams": OBS_OVERHEAD_STREAMS, "duration_h": OBS_HOURS,
-            "samples_s": samples, "wall_off_s": t_off, "wall_on_s": t_on,
-            "overhead": (t_on - t_off) / t_off,
-            "reference_bar": OBS_MAX_OVERHEAD}
-
-
-def check_obs(overhead: bool = True) -> dict:
-    """Phase 12, host only: the fleet-wide loop on ``drifting_scene`` and
-    both regional loops on ``regional_drift`` against the reference's
-    outcomes, the per-group arm's JSONL and Chrome-trace round trips, and
-    (``overhead``) the telemetry overhead on a ``mega_city`` day. Returns the
-    report; any mismatch is fatal."""
-    import tempfile
-    _no_reference_loaded("observability")
-    t0 = time.perf_counter()
-    arms, host_s = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for arm, online in (("stale", False), ("online", True)):
-            t = time.perf_counter()
-            policy, ledger = _obs_drift_arm(online)
-            host_s[f"drifting_scene {arm}"] = time.perf_counter() - t
-            arms[("drifting_scene", arm)] = _obs_summary(
-                policy, ledger, len(policy.telemetry.points))
-        for arm, regional in (("fleet-wide", False), ("per-group", True)):
-            jsonl = os.path.join(tmp, "regional.jsonl") if regional else None
-            t = time.perf_counter()
-            policy, ledger, hub, _ = _obs_regional_arm(regional, jsonl)
-            host_s[f"regional_drift {arm}"] = time.perf_counter() - t
-            arms[("regional_drift", arm)] = _obs_summary(policy, ledger,
-                                                         len(hub.points))
-            if regional:
-                exports = _obs_round_trips(
-                    "regional_drift per-group", hub, policy.tracer, jsonl,
-                    os.path.join(tmp, "regional_trace.json"))
-    for key, want in OBS_EXPECTED.items():
-        got = arms[key]
-        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
-        if bad:
-            fail(f"{' '.join(key)}: differs from the reference "
-                 f"(got, want): {bad}")
-    fleet = arms[("regional_drift", "fleet-wide")]["totals"]
-    group = arms[("regional_drift", "per-group")]["totals"]
-    if group["total_cost"] > fleet["total_cost"] or \
-            group["migrations"] >= fleet["migrations"]:
-        fail("per-group recalibration did not match fleet-wide on cost "
-             "with fewer migrations")
-    host = time.perf_counter() - t0
-    print(f"the observability loop: {len(arms)} arms equal the reference's "
-          f"({host:.3f} s on the host); exports round-trip: {exports}")
-    report = {"arms": {" ".join(k): v for k, v in arms.items()},
-              "exports": exports, "host_s": host_s, "host_s_total": host}
-    if overhead:
-        o = report["overhead"] = obs_overhead()
-        print(f"telemetry overhead: mega_city {OBS_HOURS:g} h x "
-              f"{o['streams']} streams {o['wall_off_s']:.4f} s -> "
-              f"{o['wall_on_s']:.4f} s ({o['overhead']:+.2%}; the "
-              f"reference's bar {OBS_MAX_OVERHEAD:.0%}, not a gate here)")
-    return report
 
 
 def obs_engine_loop(torch, cfg, params, jsonl_path: str, *,
@@ -3966,19 +3245,12 @@ def main() -> None:
         records[name]["launches_by_path"][f"{TRAIN_ARCH} train"] = n
     check_refusals(torch, wrappers)
 
-    # 10) the paper's resource manager, on the host of this machine
-    manager_report = check_manager()
+    # 11) a simulated day capped by the rates phase 6 measured on the card
+    sim_report = check_calibrated_day(calibration)
 
-    # 11) the fleet simulator on the host, and a day capped by the rates
-    # phase 6 measured on the card
-    sim_report = check_sim()
-    sim_report["calibrated_day"] = check_calibrated_day(calibration)
-
-    # 12) the observability loop: the JAX package's two obs benchmarks on
-    # the host, then drift detected live across two olmo-1b engines, a main
-    # path whose launches join the sum
-    obs_report = check_obs()
-    obs_report["engines"], counts = check_obs_engines(torch, wrappers)
+    # 12) the observability loop: drift detected live across two olmo-1b
+    # engines, a main path whose launches join the sum
+    obs_report, counts = check_obs_engines(torch, wrappers)
     for name, n in counts.items():
         records[name]["launches"] += n
         if n:
@@ -3999,8 +3271,6 @@ def main() -> None:
         if n:
             records[name]["launches_by_path"][LOOP_PATH] = n
     print(json.dumps({"vgg": vgg_report}))
-    print(card, flush=True)
-    print(json.dumps({"manager": manager_report}))
     print(card, flush=True)
     print(json.dumps({"sim": sim_report}))
     print(card, flush=True)

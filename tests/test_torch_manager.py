@@ -252,96 +252,3 @@ def test_public_api_mirrors_reference():
     assert not missing, missing
     # every strategy the reference registers, and nothing else
     assert list(P.STRATEGIES) == list(R.STRATEGIES)
-
-
-# -- the card's manager phase (chip_smoke.py, phase 10) -------------------------
-
-ROOT = Path(__file__).resolve().parents[1]
-
-
-def _chip_smoke():
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def test_chip_smoke_manager_tables_are_the_references():
-    """The expected values phase 10 holds the port to on the card are the
-    reference's outputs (and Fig. 3's table is tests/test_fig3.py's)."""
-    cs = _chip_smoke()
-    assert cs.FIG3_EXPECTED == EXPECTED
-    assert set((0.2, 1.0, 5.0, 10.0, 20.0)) <= set(cs.FIG6_FPS)
-    assert tuple((t.name, t.capacity, dict(t.prices), t.has_gpu)
-                 for t in R.table1_catalog().types) == cs.TABLE1
-    mgr1 = R.ResourceManager(R.table1_catalog())
-    for sc, want in cs.TABLE1_ST3.items():
-        s = mgr1.plan(R.make_streams(R.FIG3_SCENARIOS[sc]), "ST3").summary()
-        assert (s["hourly_cost"], s["non_gpu_instances"],
-                s["gpu_instances"]) == want
-    letter = {"replan": "r", "keep": "k", "forced-replan": "f"}
-    for strat, (kinds, total, migrations) in cs.RUSH_HOUR.items():
-        am = R.AdaptiveManager(R.ResourceManager(R.fig3_catalog()),
-                               strategy=strat)
-        for t in range(48):
-            am.step(t, [R.Stream(f"cam{i}", R.PROGRAMS["ZF"],
-                                 fps=cs.rush_hour_fps(t)) for i in range(4)])
-        assert "".join(letter[e.action] for e in am.events) == kinds
-        assert am.total_cost().hex() == total.hex()
-        assert am.total_migrations() == migrations
-
-
-def test_chip_smoke_manager_phase_runs_without_jax():
-    """Phase 10 runs on the CPU as it runs on the card's machine (host only),
-    with jax blocked; its REPAIR and plan_mixed figures are the reference's
-    for the same seeded fleets."""
-    import json
-    import os
-    import subprocess
-    import sys
-    probe = ("import sys, json; sys.modules['jax'] = None; "
-             "import chip_smoke; "
-             "print(json.dumps(chip_smoke.check_manager()))")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stdout + res.stderr
-    report = json.loads(res.stdout.strip().splitlines()[-1])
-    assert report["fig3"]["ST1 scenario 3"] == "Fail"
-    assert report["fig3"]["ST3 scenario 3"]["hourly_cost"] == 6.919
-    assert set(report["host_s"]) == {
-        "fig3", "fig6", "table1", "rush_hour ST3", "rush_hour REPAIR",
-        "repair fresh", "repair replan", "plan_mixed"}
-
-    # the same seeded steps through the reference
-    import dataclasses
-
-    import numpy as np
-    cs = _chip_smoke()
-    rng = np.random.default_rng(cs.MANAGER_SEED)
-    mgr6 = R.ResourceManager(R.fig6_catalog())
-    fleet = cs._manager_fleet(R, ref_geo, rng, cs.MANAGER_FLEET)
-    first = mgr6.plan(fleet, "REPAIR")
-    drifted = [dataclasses.replace(s, fps=round(min(s.fps * 1.5, 6.0), 3))
-               if rng.random() < 0.3 else s
-               for s in fleet if rng.random() > 0.1]
-    drifted += cs._manager_fleet(R, ref_geo, rng, 20, tag="new")
-    repaired = mgr6.plan(drifted, "REPAIR", previous=first)
-    fresh = mgr6.plan(drifted, "FFD")
-    assert report["repair"] == {
-        "streams": len(drifted),
-        "migrations": R.count_plan_migrations(first, repaired),
-        "ffd_migrations": R.count_plan_migrations(first, fresh),
-        "hourly_cost": repaired.hourly_cost,
-        "ffd_hourly_cost": fresh.hourly_cost,
-        "instances": sum(repaired.instance_counts().values())}
-    replicated = cs._manager_fleet(R, ref_geo, rng, cs.MANAGER_FLEET,
-                                   replicas=2)
-    mult = {r: round(float(rng.uniform(0.2, 0.9)), 4)
-            for r in mgr6.catalog.locations}
-    mixed = mgr6.plan_mixed(replicated, mult)
-    assert report["mixed"]["hourly_cost"] == mixed.plan.hourly_cost
-    assert report["mixed"]["ondemand_cost"] == mixed.ondemand_cost
-    assert report["mixed"]["instances"] == len(mixed.plan.solution.bins)
