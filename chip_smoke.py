@@ -9,7 +9,7 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    name and power limit as ``nvidia-smi`` reports them.
 2. Build the CUDA kernels (flash attention and its backward, SSD chunked
    scan, RG-LRU: the scan and the fused gates-and-scan form, one source;
-   the grouped MoE expert products) from
+   the grouped MoE expert products; the split-TF32 dense product) from
    ``src/repro_torch/kernels/csrc`` with nvcc, one compiler per source, all
    started together (cached under ``build/``), and print their reports.
 3. Hold the flash kernel against its plain PyTorch version on seeded inputs:
@@ -247,7 +247,10 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    on the card, counted in the trace: the grouped expert kernels
    (``csrc/moe_experts.cu``) once a layer in every prefill and decode step
    (40 layers), the SSD kernel in the 36 Mamba-2 layers and flash in the 4
-   attention layers of every prefill, nothing else. The grouped product's
+   attention layers of every prefill, nothing else; and the split-TF32
+   dense product (``csrc/dense_gemm.cu``) ``DENSE_PER_PREFILL`` wrapper
+   calls a prefill, its kernels in the trace within ``DENSE_TRACE_MISS``
+   below that (phase 16). The grouped product's
    first call at each shape (the drain's prefill of 576 tokens with the
    large tiles; the decode step's 16 with the small ones, from one eager
    step on the drain's last state, since a replay calls no wrapper) is
@@ -255,13 +258,30 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    against ``ref.moe_experts_ref`` on them within ``MOE_TOL`` of the
    largest |output|; there they are timed (back to back, device alone by
    kernel, host enqueue, the plain version) beside their bound.
-16. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
+16. The split-TF32 dense product (``csrc/dense_gemm.cu``): at 576 rows and
+   each (K, N) of ``DENSE_SHAPES`` (every dense product of the three
+   serving cells' prefills), seeded x ~ N(0, 1) and w ~ N(0, 0.02²), the
+   kernel's largest error against an fp64 product must be at most twice
+   its plain version's (``ref.dense_gemm_ref``, fp32 ``x @ w`` on cuBLAS);
+   a product the route declines (the router's N of 72) is timed on cuBLAS
+   only. Each is timed (CUDA events, device alone by the profiler, host
+   enqueue, the plain version) beside its bound (three TF32 passes at 495
+   TFLOP/s, or the bytes of x, w and the output). Then olmo-1b and
+   mamba2-2.7b at full width in fp32 through ``ContinuousBatchingEngine``:
+   ``DENSE_FRAMES`` frames of 576 tokens each, under ``torch.profiler``;
+   the kernel's wrapper calls must be ``DENSE_PER_PREFILL`` x the prefills
+   and its kernels in the trace no more, and fewer by at most
+   ``DENSE_TRACE_MISS`` (a long process's trace has dropped records)
+   (granite-4.0-h-small's are counted so in phase 15's drain), and the
+   engine's ``dense_kernel_share`` 1.
+17. Print ``{"kernels": [...]}`` on one line (a kernel's ``launches`` sums
    its calls that ran on the card on its main paths, served, trained, the
    observability loop's, the meshed training's, phase 14's serve and phase
    15's: its wrapper's calls, or, on a path whose replayed decode steps
    launch it, its calls counted in the trace; ``launches_by_path``
    also holds the phase-5 paths; the grouped expert kernels' record is
-   phase 15's), then the last line ``{"ok": true, "device": {...}}``.
+   phase 15's, the dense product's phase 16's with phase 15's launches),
+   then the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout, so fp32 matrix products are full fp32.
 """
@@ -393,7 +413,8 @@ CALL_KERNELS = {"flash_attention": ("flash_attention_kernel_", 1),
                 "ssd_scan": ("ssd_scan_kernel_prep", 1),
                 "rglru_scan": ("rglru_scan_kernel", 1),
                 "rglru_gated_scan": ("rglru_gated_scan_kernel", 1),
-                "moe_experts": ("moe_grouped_kernel", 2)}
+                "moe_experts": ("moe_grouped_kernel", 2),
+                "dense_gemm": ("dense_gemm_kernel", 1)}
 # each served model and the kernels its main path runs
 SERVED = {"olmo-1b": ["flash_attention"], "mamba2-2.7b": ["ssd_scan"],
           "recurrentgemma-9b": ["rglru_gated_scan", "flash_attention"],
@@ -477,6 +498,22 @@ GRANITE_SLOTS, GRANITE_CACHE = 16, 640
 # |output|: fp32 sums of 4,096 and 768 products in another order (the
 # card's first reading, against torch._grouped_mm, was 2.0e-6)
 MOE_TOL = 1e-5
+# phase 16, the split-TF32 dense product: (K, N) of every dense product of
+# the serving cells' prefills (olmo-1b's q/k/v/o, SwiGLU up and down;
+# mamba2-2.7b's in_proj and out_proj; granite-4.0-h-small's in_proj,
+# out_proj, attention q/o and k/v, shared expert up and down, router), at
+# 576 rows; and the products a 576-token prefill puts on the kernel: 7 a
+# layer in olmo-1b, 2 in mamba2-2.7b, in granite 2 a Mamba-2 layer, 4 an
+# attention layer and 3 a shared expert (the router's N of 72 is declined)
+DENSE_SHAPES = [(2048, 2048), (2048, 8192), (8192, 2048), (2560, 10576),
+                (5120, 2560), (4096, 16768), (8192, 4096), (4096, 4096),
+                (4096, 1024), (4096, 1536), (1536, 4096), (4096, 72)]
+DENSE_ROWS = 576
+DENSE_PER_PREFILL = {"olmo-1b": 16 * 7, "mamba2-2.7b": 64 * 2,
+                     GRANITE_ARCH: 36 * 2 + 4 * 4 + 40 * 3}
+DENSE_FRAMES = 8
+DENSE_TRACE_MISS = 0.01
+DENSE_PATH = "{arch} 576-token frames (phase 16)"
 
 
 def fail(msg: str) -> None:
@@ -2989,6 +3026,7 @@ def check_granite(torch, wrappers: dict) -> tuple[dict, dict]:
     row; then timed there (back to back, device alone, host enqueue, the
     plain version, the bound). Returns the grouped kernel's record and the
     other kernels' calls on the card; the model freed."""
+    from repro_torch.kernels import dense_gemm as dg
     from repro_torch.kernels import moe_experts as me
     from repro_torch.kernels import ops, ref
     from repro_torch.models import steps
@@ -3014,7 +3052,8 @@ def check_granite(torch, wrappers: dict) -> tuple[dict, dict]:
                                 w3, w2, small)
         return plain_op(x, rows, ends, w1, w3, w2, small)
 
-    kernels = {**wrappers, "moe_experts": me.moe_experts}
+    kernels = {**wrappers, "moe_experts": me.moe_experts,
+               "dense_gemm": dg.dense_gemm}
     for fn in kernels.values():
         fn.launches = 0
     ops.moe_experts = keep_first
@@ -3052,8 +3091,14 @@ def check_granite(torch, wrappers: dict) -> tuple[dict, dict]:
     want = {name: expected_launches(cfg, name, ran["prefills"],
                                     ran["decode_steps"]) for name in wrappers}
     want["moe_experts"] = moe_layers * (ran["prefills"] + ran["decode_steps"])
-    if counts != want:
-        fail(f"{GRANITE_ARCH}: launches {counts}; expected {want}")
+    dense = counts.pop("dense_gemm")
+    want_dense = DENSE_PER_PREFILL[GRANITE_ARCH] * ran["prefills"]
+    if counts != want or not _dense_count_ok(calls["dense_gemm"], dense,
+                                             want_dense):
+        fail(f"{GRANITE_ARCH}: launches {counts}, dense_gemm {dense} by the "
+             f"trace and {calls['dense_gemm']} wrapper calls; expected "
+             f"{want}, dense_gemm {want_dense}")
+    counts["dense_gemm"] = calls["dense_gemm"]
     if sorted(kept) != [GRANITE_SLOTS, GRANITE_PROMPT]:
         fail(f"{GRANITE_ARCH}: the grouped product saw token counts "
              f"{sorted(kept)}; expected {GRANITE_SLOTS} and {GRANITE_PROMPT}")
@@ -3109,6 +3154,132 @@ def check_granite(torch, wrappers: dict) -> tuple[dict, dict]:
                                 if n != "moe_experts"}
 
 
+def dense_bound_ms(M: int, K: int, N: int) -> tuple[float, str]:
+    """The least time of an fp32 (M, K) @ (K, N) done as three TF32 passes:
+    the passes at the dense TF32 peak, or x, w and the output at the HBM
+    rate, whichever is longer."""
+    ops_s = 3 * 2 * M * K * N / 495e12
+    bytes_s = 4 * (M * K + K * N + M * N) / pb_peaks.HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, \
+        "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _dense_count_ok(calls: int, on_card: int, want: int) -> bool:
+    """The dense product's calls on a served path: the wrapper's calls
+    exactly (a prefill runs eagerly, each call one launch), and the trace's
+    kernels no more, and fewer by at most ``DENSE_TRACE_MISS`` (a long
+    process's trace can drop a record: 893 of 896 once)."""
+    return calls == want and want * (1 - DENSE_TRACE_MISS) <= on_card <= want
+
+
+def _dense_device_ms(torch, run, n: int = 20) -> float:
+    """Device time of one call from ``torch.profiler``: the mean over the
+    ``dense_gemm_kernel`` records of ``n`` calls (over those recorded, so a
+    dropped record does not lower it)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "dense_gemm_kernel" in e.name]
+    if not times:
+        fail("the profiler saw no dense_gemm_kernel")
+    return sum(times) / len(times)
+
+
+def check_dense(torch) -> dict:
+    """Phase 16: the split-TF32 dense product at every (K, N) of
+    ``DENSE_SHAPES`` and ``DENSE_ROWS`` rows against fp64 and its plain
+    version, timed beside its bound; then one traced drain of olmo-1b and
+    of mamba2-2.7b at full width, 576-token frames, in which the kernel's
+    calls on the card (by the trace) and its wrapper's calls must both be
+    ``DENSE_PER_PREFILL`` x the prefills. Returns its record, whose
+    launches are the drains' (phase 15 adds granite-4.0-h-small's)."""
+    from repro_torch.kernels import dense_gemm as dg
+    from repro_torch.kernels import ref
+    from repro_torch.models.config import get_config
+    from repro_torch.serving import ContinuousBatchingEngine, Request
+
+    shapes = {}
+    for K, N in DENSE_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(K * 7 + N)
+        x = torch.randn(DENSE_ROWS, K, device="cuda", generator=g,
+                        dtype=torch.float64)
+        w = torch.randn(K, N, device="cuda", generator=g,
+                        dtype=torch.float64) * 0.02
+        x, w = x.float(), w.float()
+        truth = x.double() @ w.double()
+        plain = lambda: ref.dense_gemm_ref(x, w)
+        t = {"plain_ms": cuda_ms(torch, plain, iters=50, warmup=5)}
+        t["bound_ms"], t["bound_by"] = dense_bound_ms(DENSE_ROWS, K, N)
+        plain_err = (plain().double() - truth).abs().max().item()
+        if dg.takes(x, w):
+            run = lambda: dg.dense_gemm(x, w)
+            err = (run().double() - truth).abs().max().item()
+            if not err <= 2 * plain_err:
+                fail(f"dense_gemm K {K} N {N}: max |err| {err:.3e} against "
+                     f"fp64, over twice the plain version's {plain_err:.3e}")
+            t["ms"] = cuda_ms(torch, run, iters=50, warmup=5)
+            t["device_ms_alone"] = _dense_device_ms(torch, run)
+            t["host_enqueue_ms"] = host_enqueue_ms(torch, run, 50, 5)
+            t["max_abs_err"] = err
+            t["blocks"], t["whole_tiles"], t["unsplit"] = dg.plan(
+                DENSE_ROWS, N, K, dg._sms(0))
+        t["plain_max_abs_err"] = plain_err
+        shapes[f"{K}x{N}"] = t
+        print(f"dense_gemm ({DENSE_ROWS}, {K}) @ ({K}, {N}): {json.dumps(t)}",
+              flush=True)
+        del x, w, truth
+
+    counts = {}
+    for arch in ("olmo-1b", "mamba2-2.7b"):
+        cfg = get_config(arch)
+        params = _params(torch, cfg)
+        eng = ContinuousBatchingEngine(cfg, params, max_slots=GRANITE_SLOTS,
+                                       cache_len=GRANITE_CACHE)
+        rng = np.random.default_rng(16)
+        for i in range(DENSE_FRAMES):
+            eng.submit(Request(f"d{i}", rng.integers(
+                0, cfg.vocab_size, GRANITE_PROMPT).astype(np.int32),
+                max_new_tokens=2))
+        dg.dense_gemm.launches = 0
+        prof, wall, done = _traced_drain(torch, eng)
+        calls = dg.dense_gemm.launches
+        on_card = _device_calls(torch, prof, ["dense_gemm"])["dense_gemm"]
+        del prof
+        want = DENSE_PER_PREFILL[arch] * eng.stats["prefills"]
+        share = eng.report()["dense_kernel_share"]
+        print(f"{arch}: {len(done)} frames of {GRANITE_PROMPT} tokens in "
+              f"{wall:.2f} s traced; dense_gemm {on_card} calls on the card "
+              f"by the trace, {calls} wrapper calls, {want} expected; "
+              f"dense_kernel_share {share}", flush=True)
+        if not _dense_count_ok(calls, on_card, want) or share != 1.0:
+            fail(f"{arch}: dense_gemm ran {on_card} times by the trace and "
+                 f"{calls} by its wrapper; expected {want} "
+                 f"({DENSE_PER_PREFILL[arch]} a prefill), share {share}")
+        counts[DENSE_PATH.format(arch=arch)] = calls
+        del eng, params, done
+        gc.collect()
+        torch.cuda.empty_cache()
+    main = shapes["4096x16768"]
+    return {"name": "dense_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dense_gemm.cu",
+            "replaces": None, "shape": [DENSE_ROWS, 4096, 16768],
+            "dtype": "float32", "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "device_ms": main["device_ms_alone"],
+            "device_ms_alone": main["device_ms_alone"],
+            "host_enqueue_ms": main["host_enqueue_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["plain_ms"],
+            "launches": sum(counts.values()), "launches_by_path": counts,
+            "shapes": shapes}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3158,6 +3329,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.kernels import dense_gemm as dg
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_experts as me
     from repro_torch.kernels import ref
@@ -3166,7 +3338,8 @@ def main() -> None:
 
     # 2) build
     build_kernels({"flash_attention": fa, "flash_attention_bwd": fa,
-                   "ssd_scan": ssd, "rglru_scan": rg, "moe_experts": me})
+                   "ssd_scan": ssd, "rglru_scan": rg, "moe_experts": me,
+                   "dense_gemm": dg})
     wrappers = {"flash_attention": fa.flash_attention,
                 "ssd_scan": ssd.ssd_scan, "rglru_scan": rg.rglru_scan,
                 "rglru_gated_scan": rg.rglru_gated_scan,
@@ -3227,6 +3400,10 @@ def main() -> None:
             per_call = prof["device_ms_per_call"][name]
             records[name].setdefault("device_ms", per_call)
             records[name].setdefault("device_ms_by_path", {})[arch] = per_call
+
+    # 16) the split-TF32 dense product: its shapes, and its launches in
+    # served drains of olmo-1b and mamba2-2.7b (granite's join in 15)
+    records["dense_gemm"] = check_dense(torch)
 
     # 15) granite-4.0-h-small, the grouped expert kernels' main path: its
     # record, and the other kernels' launches joining their sums

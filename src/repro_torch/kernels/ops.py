@@ -16,6 +16,13 @@ tensors under grad, ``ssd_scan``, ``rglru_scan``, ``rglru_gated_scan`` and
 ``ValueError`` rather than hand back an output with no gradient (train such
 a model with ``ModelOptions(use_kernels=False)``). On the CPU their plain
 versions are differentiable torch ops.
+
+Dense products: ``matmul(x, w)`` is ``x @ w`` (on the CPU, the plain
+version ``ref.dense_gemm_ref`` computes), except that a product the
+split-TF32 kernel takes by its rule (``dense_gemm.takes``: plain fp32 CUDA
+tensors, no gradient wanted, at least ``dense_gemm.MIN_ROWS`` rows) runs on
+it. That rule, not the device alone, decides: a declined CUDA product is
+cuBLAS's, as before.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Optional
 import torch
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import dense_gemm as _dg
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_experts as _moe
 from repro_torch.kernels import ref
@@ -141,3 +149,10 @@ def moe_experts(x: torch.Tensor, rows: torch.Tensor, ends: torch.Tensor,
         return ref.moe_experts_ref(x, rows, ends, w1, w3, w2)
     raise ValueError(f"moe_experts: no kernel for devices {sorted(devices)}; "
                      "need all cuda or all cpu")
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w, on the split-TF32 kernel where ``dense_gemm.takes`` it."""
+    if _dg.takes(x, w):
+        return _dg.dense_gemm(x, w)
+    return x @ w

@@ -283,3 +283,50 @@ def moe_experts_ref(x: torch.Tensor, rows: torch.Tensor, ends: torch.Tensor,
         y[start:end] = (F.silu(xe @ w1[e]) * (xe @ w3[e])) @ w2[e]
         start = end
     return y
+
+
+def dense_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``kernels.dense_gemm.dense_gemm``: x @ w in fp32."""
+    return x.float() @ w.float()
+
+
+def tf32_rna(v: torch.Tensor) -> torch.Tensor:
+    """fp32 ``v`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does; finite inputs."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_trunc(v: torch.Tensor) -> torch.Tensor:
+    """fp32 ``v`` with its low 13 bits dropped: what the tensor cores make
+    of an fp32 operand read as TF32."""
+    bits = v.float().contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def dense_gemm_split_tf32(x: torch.Tensor, w: torch.Tensor,
+                          ranges: list[tuple[int, int]],
+                          slice_k: int = 32) -> torch.Tensor:
+    """The kernel's arithmetic written out: x (M, K) @ w (K, N) as
+    x_lo·w_hi + x_hi·w_lo + x_hi·w_hi, with w_hi = rna(w), w_lo = rna(w -
+    w_hi), x_hi = trunc(x), x_lo = rna(x - x_hi); each ``slice_k``-deep
+    slice of K summed exactly (in fp64: the tensor cores' own sum
+    truncates, which this does not model) and rounded to fp32, the slices
+    added in fp32 in order within each of ``ranges`` ([k0, k1) of a tile's
+    parts, ``dense_gemm.segments``), then the parts' partials added in fp32
+    in order."""
+    xh = tf32_trunc(x)
+    xl = tf32_rna(x.float() - xh)
+    wh = tf32_rna(w)
+    wl = tf32_rna(w.float() - wh)
+    xh, xl, wh, wl = (t.double() for t in (xh, xl, wh, wl))
+    total = None
+    for k0, k1 in ranges:
+        part = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32)
+        for s in range(k0, k1, slice_k):
+            e = min(s + slice_k, k1)
+            prod = xl[:, s:e] @ wh[s:e] + xh[:, s:e] @ wl[s:e] \
+                + xh[:, s:e] @ wh[s:e]
+            part = part + prod.float()
+        total = part if total is None else total + part
+    return total

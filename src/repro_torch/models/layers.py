@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ArchConfig
 
 NEG_INF = -1e30
@@ -64,7 +65,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w for x (..., D_in) and w (D_in, D_out). On DTensors, tensor
+    """x @ w for x (..., D_in) and w (D_in, D_out). On plain tensors
+    ``kernels.ops.matmul``: a fp32 CUDA product of many rows with no
+    gradient wanted (a prefill's) runs on the split-TF32 kernel, any other
+    on ``x @ w``. On DTensors, tensor
     parallelism written out, so that no torch release's choice gathers a
     weight that the rules split: on the "model" mesh dim a weight sharded
     on its output dim is column-parallel (x gathered there, the output
@@ -73,7 +77,7 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the data axes the weight is gathered (an FSDP shard) and x keeps its
     batch sharding (the weight's gradient a partial sum over them)."""
     if not isinstance(w, DTensor):
-        return x @ w
+        return kops.matmul(x, w)
     mesh = w.device_mesh
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
@@ -301,7 +305,6 @@ def attention_full(params, x: torch.Tensor, cfg: ArchConfig, *,
         K = H
 
     if use_flash:
-        from repro_torch.kernels import ops as kops
         fn = lambda q, k, v: kops.flash_attention(q, k, v, causal=cfg.causal,
                                                   window=window)
     elif blockwise > 0:

@@ -84,7 +84,7 @@ def capacity(tokens: int, cfg: ArchConfig) -> int:
 def _route(router: torch.Tensor, x: torch.Tensor, cfg: ArchConfig):
     """x: (T, D) -> (probs (T, E) fp32, top weights (T, K) fp32
     renormalised, top ids (T, K)), ties toward the lower expert."""
-    probs = torch.softmax((x @ router).float(), dim=-1)
+    probs = torch.softmax(kops.matmul(x, router).float(), dim=-1)
     top_w, top_ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     K = cfg.experts_per_token
     top_w, top_ids = top_w[:, :K], top_ids[:, :K]

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.models.config import ArchConfig
 
@@ -59,7 +60,7 @@ def ssd_forward(params, x: torch.Tensor, cfg: ArchConfig,
     state; see ``ssd_cache_from_prefill``)."""
     B, S, D = x.shape
     di, H, P, N = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = kops.matmul(x, params["in_proj"])
     z, xBC_raw, dt = _split_proj(cfg, zxbcdt)
     xBC = F.silu(_causal_conv(xBC_raw, params["conv_w"], params["conv_b"]))
     xin = xBC[..., :di].reshape(B, S, H, P)
@@ -76,7 +77,6 @@ def ssd_forward(params, x: torch.Tensor, cfg: ArchConfig,
     else:
         xin_p, dt_p, Bm_p, Cm_p = xin, dt, Bm, Cm
     if use_kernel:
-        from repro_torch.kernels import ops as kops
         y = kops.ssd_scan(xin_p.contiguous(), dt_p.contiguous(), A,
                           Bm_p.contiguous(), Cm_p.contiguous(),
                           cfg.ssm_chunk)
@@ -89,7 +89,7 @@ def ssd_forward(params, x: torch.Tensor, cfg: ArchConfig,
     y = y.reshape(B, S, di) * F.silu(z)
     y = _gated_rmsnorm(y, params["norm_scale"], x.dtype,
                        cfg.ssm_norm_eps)
-    y = y @ params["out_proj"]
+    y = kops.matmul(y, params["out_proj"])
     if not want_cache:
         return y
     # the final state by one sum over the unpadded S positions (the scan

@@ -18,8 +18,10 @@ or each row's state and conv history (SSD), so the pool is allocated once
 and never copied. Stats and their exports
 (``measured_rates``, ``windowed_rates``, ``report``) match the reference's
 exactly, so the reference planner, simulator and observability code consume
-these engines unchanged; ``ContinuousBatchingEngine.report()`` adds one
-field of its own, ``decode_graph_share``.
+these engines unchanged; ``ContinuousBatchingEngine.report()`` adds two
+fields of its own, ``decode_graph_share`` and ``dense_kernel_share`` (the
+share of the FLOPs of its fp32 CUDA products of many rows, a prefill's,
+that ran on the split-TF32 kernel, ``kernels.dense_gemm``).
 
 On a CUDA device, with plain (not DTensor) parameters,
 ``ContinuousBatchingEngine`` captures its decode step once, when it is
@@ -46,6 +48,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels import dense_gemm as _dg
 from repro_torch.models import model as M
 from repro_torch.models import steps
 from repro_torch.models.config import ArchConfig
@@ -288,6 +291,7 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
         self._latencies: list[float] = []
         self._slo_hits = 0
         self._occupancy_sum = 0.0
+        self._dense0 = _dense_flops()
         self._init_stream_stats()
         self.stats = {"requests": 0, "tokens_generated": 0, "prefills": 0,
                       "decode_steps": 0, "wall_s": 0.0}
@@ -421,10 +425,14 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
         self._latencies = []
         self._slo_hits = 0
         self._occupancy_sum = 0.0
+        self._dense0 = _dense_flops()
 
     def report(self) -> dict:
-        """SLO attainment, latency percentiles, slot occupancy, and the
-        share of decode steps replayed from the CUDA graph. With no
+        """SLO attainment, latency percentiles, slot occupancy, the share
+        of decode steps replayed from the CUDA graph, and the share of the
+        FLOPs of fp32 CUDA products of at least ``dense_gemm.MIN_ROWS`` rows
+        (in this process, since the counters were zeroed) that ran on the
+        split-TF32 kernel (0 where there were none). With no
         completed requests the latency fields *and* ``slo_attainment`` are
         ``None`` and the counters are zero; the report never raises."""
         lat = sorted(self._latencies)
@@ -436,6 +444,8 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
             return lat[min(n - 1, max(0, int(np.ceil(p * n)) - 1))]
 
         steps_ = self.stats["decode_steps"]
+        taken, declined = (now - then for now, then in
+                           zip(_dense_flops(), self._dense0))
         return {
             "requests": self.stats["requests"],
             "tokens_per_s": self.throughput_tokens_per_s(),
@@ -445,7 +455,14 @@ class ContinuousBatchingEngine(_EngineStatsMixin):
             "slot_occupancy": (self._occupancy_sum / steps_) if steps_ else 0.0,
             "decode_graph_share": (self._decode_graph.replays / steps_)
             if steps_ and self._decode_graph is not None else 0.0,
+            "dense_kernel_share": (taken / (taken + declined))
+            if taken + declined else 0.0,
         }
+
+
+def _dense_flops() -> tuple[int, int]:
+    """The split-TF32 kernel's FLOPs taken and declined, so far."""
+    return _dg.dense_gemm.flops_taken, _dg.dense_gemm.flops_declined
 
 
 class StreamSimulator:

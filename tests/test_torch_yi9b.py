@@ -215,10 +215,12 @@ def test_serve_yi9b_cpu_and_plan_from_measured_rates():
     assert out["arch"] == want["arch"] == "yi-9b"
     assert set(out) == set(want)
     # the port's engine adds the share of its decode steps replayed from
-    # a CUDA graph: none on the CPU
+    # a CUDA graph and the share of its dense FLOPs on the split-TF32
+    # kernel: none of either on the CPU
     assert set(out["serving_report"]) == set(want["serving_report"]) | {
-        "decode_graph_share"}
+        "decode_graph_share", "dense_kernel_share"}
     assert out["serving_report"]["decode_graph_share"] == 0.0
+    assert out["serving_report"]["dense_kernel_share"] == 0.0
     assert out["frames_served"] == want["frames_served"] == 8
     for s, plan in out["fleet_plans"].items():
         assert set(plan) == set(want["fleet_plans"][s])
